@@ -1,0 +1,241 @@
+"""Drive the PyTorch/CUDA port's fusion path once on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases (each prints a line; any failure raises and the exit code is not 0):
+  1. device   require a CUDA card; print nvidia-smi's name and power limit
+  2. build    compile the CUDA kernels from reconplan_tpu_torch/csrc
+  3. kernels  K2 and K1 against their plain PyTorch versions on the card, at
+              the bench shapes (512^3, one 8-frame chunk of the bench scene
+              with the real ids / fbits / live count of the mask pipeline;
+              K1 again with color on a 4-frame chunk), with CUDA-event times
+  4. check    the brick path against the dense engine on a small input
+  5. bench    integrate_frames_bricked_device, 32 frames of 640x480 at 512^3
+  6. banana   SplatCamera orbit of the YCB banana -> FusionPipeline(brick,
+              512^3, color) -> extract_mesh -> chamfer_to_mesh (<= 1 mm)
+Launch counters are zeroed just before phase 5 and read after phase 6: both
+kernels must have been launched by the main path. The line before the last
+is a JSON summary of the kernels; the last line is the run's JSON status.
+"""
+
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+
+BANANA = os.path.join(REPO, "data/objects/011_banana/tsdf/nontextured.ply")
+
+
+def phase(name, msg):
+    print(f"[{name}] {msg}", flush=True)
+
+
+def events_ms(fn, reps=10):
+    """Mean ms per call from CUDA events, after one warm-up call."""
+    from reconplan_tpu_torch.bench import time_ms
+
+    return time_ms(fn, reps=reps, warmup=1)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    from reconplan_tpu_torch.bench import (
+        MAX_ACTIVE, N, ORIGIN, VOXEL, make_frames)
+    from reconplan_tpu_torch.io.meshio import load_mesh
+    from reconplan_tpu_torch.io.render import SplatCamera
+    from reconplan_tpu_torch.io.frames import FrameSet
+    from reconplan_tpu_torch.ops import tsdf as tsdf_ops
+    from reconplan_tpu_torch.ops import tsdf_brick as tb
+    from reconplan_tpu_torch.ops.kernels import (
+        active_mask, active_mask_reference, brick_integrate,
+        brick_integrate_reference, build)
+    from reconplan_tpu_torch.recon.fusion import FusionPipeline
+    from reconplan_tpu_torch.recon.metrics import chamfer_to_mesh
+    from reconplan_tpu_torch.utils.device import card_summary
+
+    dev = torch.device("cuda")
+    card = card_summary()
+    phase("device", f"{card} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | {torch.cuda.device_count()} card(s)")
+
+    t0 = time.perf_counter()
+    lib_path = build.build(verbose=True)
+    build.load_library()
+    phase("build", f"{lib_path.name} in {time.perf_counter() - t0:.2f} s")
+
+    # --- 3. kernels against their plain versions at the bench shapes -------
+    depths, poses, K = make_frames(32)
+    d_all = torch.as_tensor(depths, device=dev)
+    p_all = torch.as_tensor(poses, device=dev)
+    intr = tuple(float(np.float32(v)) for v in K)
+    T_all = torch.linalg.inv(p_all)
+    grid = tb.make_brick_grid((N,) * 3, ORIGIN, VOXEL, device=dev)
+    bd = grid.brick_dims
+    NB = bd[0] * bd[1] * bd[2]
+    trunc = grid.trunc
+    # prior state: frames 8-15 fused into the grid
+    tb.integrate_frames_bricked_device(grid, d_all[8:16], p_all[8:16], *K)
+    d8, T8 = d_all[:8], T_all[:8].contiguous()
+    occ0, occ1, binp = tb._build_depth_occupancy(d8, 1000.0, 3.0, 8)
+    k2_args = (bd, grid.origin, VOXEL, trunc, occ0, occ1, binp, T8, *intr)
+    bits = active_mask(*k2_args, mip_cell=8)
+    bits_ref = active_mask_reference(*k2_args, mip_cell=8)
+    torch.cuda.synchronize()
+    k2_err = (bits.long() - bits_ref.long()).abs().max().item()
+    if not torch.equal(bits, bits_ref):
+        raise AssertionError(
+            f"K2 bits differ on {(bits != bits_ref).sum().item()} bricks")
+    k2_ms = events_ms(lambda: active_mask(*k2_args, mip_cell=8))
+    k2_plain_ms = events_ms(lambda: active_mask_reference(*k2_args,
+                                                          mip_cell=8))
+    phase("kernels", f"K2 active_mask: bits identical on {NB} bricks "
+          f"({(bits != 0).sum().item()} active) | kernel {k2_ms:.4f} ms, "
+          f"plain {k2_plain_ms:.4f} ms")
+
+    def k1_compare(n_frames, colors, rgb):
+        d, T = d_all[:n_frames], T_all[:n_frames].contiguous()
+        ids, fbits, n, _ = tb.chunk_active_set(
+            d, T, intr, grid.origin, bd, VOXEL, trunc, MAX_ACTIVE, NB)
+        planes = (grid.sdf.clone(), grid.weight.clone(),
+                  None if rgb is None else rgb.clone())
+        ref = tuple(None if a is None else a.clone() for a in planes)
+        rest = (ids, fbits, n, T, intr, d, colors, grid.origin, bd, VOXEL,
+                trunc, 1000.0, 3.0, 64.0)
+        brick_integrate(*planes, *rest)
+        brick_integrate_reference(*ref, *rest)
+        torch.cuda.synchronize()
+        err = (planes[0] - ref[0]).abs().max().item()
+        if err > 1e-6 or not torch.equal(planes[1], ref[1]):
+            raise AssertionError(f"K1 sdf err {err} or weight differs")
+        if rgb is not None and not torch.equal(planes[2], ref[2]):
+            raise AssertionError("K1 packed rgb differs")
+        scratch = tuple(None if a is None else a.clone() for a in planes)
+        ms = events_ms(lambda: brick_integrate(*scratch, *rest))
+        plain_ms = events_ms(lambda: brick_integrate_reference(*scratch,
+                                                               *rest), reps=3)
+        return err, ms, plain_ms, n.item()
+
+    k1_err, k1_ms, k1_plain_ms, n_live = k1_compare(8, None, None)
+    phase("kernels", f"K1 brick_integrate depth: sdf max err {k1_err:.3g}, "
+          f"weight identical, {n_live} live bricks | kernel {k1_ms:.4f} ms, "
+          f"plain {k1_plain_ms:.4f} ms")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    colors = torch.randint(0, 1 << 24, (4,) + d_all.shape[1:], generator=gen,
+                           dtype=torch.int32, device=dev)
+    rgb = torch.randint(0, 1 << 24, grid.sdf.shape, generator=gen,
+                        dtype=torch.int32, device=dev)
+    k1c_err, k1c_ms, k1c_plain_ms, n_live_c = k1_compare(4, colors, rgb)
+    phase("kernels", f"K1 brick_integrate color (4 frames): sdf max err "
+          f"{k1c_err:.3g}, weight and rgb identical, {n_live_c} live bricks "
+          f"| kernel {k1c_ms:.4f} ms, plain {k1c_plain_ms:.4f} ms")
+    del grid
+
+    # --- 4. the whole brick path against the dense engine, small input -----
+    sd, sp, sK = make_frames(8, H=120, W=160, fx=150.0, fy=150.0)
+    small = ((64,) * 3, (-0.16,) * 3, 0.32 / 63)
+    g = tb.make_brick_grid(*small, device=dev)
+    g, _ = tb.integrate_frames_bricked_device(g, sd, sp, *sK)
+    dense = tsdf_ops.integrate_frames(
+        tsdf_ops.make_grid(*small, device=dev), sd, sp, *sK)
+    sdf_b, w_b = tb.to_dense(g)
+    same = (w_b > 0) & (w_b == dense.weight)
+    small_err = (sdf_b - dense.sdf)[same].abs().max().item()
+    if same.sum().item() < 1000 or small_err > 1e-6:
+        raise AssertionError(f"brick vs dense: {same.sum().item()} voxels, "
+                             f"max err {small_err}")
+    phase("check", f"brick path vs dense engine at 64^3: max sdf err "
+          f"{small_err:.3g} on {same.sum().item()} voxels")
+
+    # --- 5. the main path: bench scene --------------------------------------
+    active_mask.launches = 0
+    brick_integrate.launches = 0
+    grid = tb.make_brick_grid((N,) * 3, ORIGIN, VOXEL, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid, n_active = tb.integrate_frames_bricked_device(
+        grid, d_all, p_all, *K, max_active=MAX_ACTIVE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    w = grid.weight
+    if not torch.isfinite(grid.sdf).all() or w.max().item() <= 0:
+        raise AssertionError("bench grid is empty or not finite")
+    phase("bench", f"32 frames 640x480 -> {N}^3: n_active {int(n_active)}, "
+          f"{32 / dt:.1f} frames/s cold-grid wall clock "
+          f"(host clock, one batch) | {card}")
+    del grid, w
+
+    # --- 6. the main path: banana orbit, color, mesh, Chamfer ---------------
+    times = {}
+    t0 = time.perf_counter()
+    cam = SplatCamera(device=dev).add_mesh_file(BANANA)
+    fd, fc, fp = [], [], []
+    for k in range(32):
+        ang = 2 * np.pi * k / 32
+        eye = [0.35 * np.cos(ang), 0.35 * np.sin(ang), 0.25]
+        d, c, T = cam.take_picture(eye, [0.0, 0.0, 0.0])
+        fd.append(d)
+        fc.append(c)
+        fp.append(T)
+    frames = FrameSet(depth=torch.stack(fd), color=torch.stack(fc),
+                      poses=np.stack(fp), intrinsics=cam.intrinsics)
+    torch.cuda.synchronize()
+    times["render_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe = FusionPipeline(dims=(N,) * 3, origin=(-0.2, -0.2, -0.15),
+                          voxel_size=0.4 / (N - 1), with_color=True,
+                          engine="brick", device=dev)
+    pipe.integrate(frames)
+    torch.cuda.synchronize()
+    times["fuse_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tris, cols = pipe.extract_mesh(with_colors=True)
+    torch.cuda.synchronize()
+    times["extract_s"] = time.perf_counter() - t0
+    launches = {"active_mask": active_mask.launches,
+                "brick_integrate": brick_integrate.launches}
+    if len(tris) == 0:
+        raise AssertionError("banana mesh has no triangles")
+    if not (torch.isfinite(tris).all() and torch.isfinite(cols).all()
+            and cols.min() >= 0 and cols.max() <= 1):
+        raise AssertionError("banana mesh or colors not finite / in range")
+    t0 = time.perf_counter()
+    gt_v, gt_f = load_mesh(BANANA)
+    ch, ab, ba = chamfer_to_mesh(tris.reshape(-1, 3), gt_v, gt_f)
+    times["chamfer_s"] = time.perf_counter() - t0
+    phase("banana", f"{len(tris)} triangles, Chamfer {ch * 1e3:.4f} mm "
+          f"(recon->gt {ab * 1e3:.4f}, gt->recon {ba * 1e3:.4f}) | "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    if ch > 1e-3:
+        raise AssertionError(f"banana Chamfer {ch * 1e3:.4f} mm > 1.0 mm")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"main path never launched {name}")
+    phase("launches", json.dumps(launches))
+
+    print(json.dumps({"kernels": [
+        {"name": "active_mask", "route": "cuda",
+         "source": "reconplan_tpu_torch/csrc/active_mask.cu",
+         "replaces": "reconplan_tpu/ops/tsdf_brick.py:278",
+         "launches": launches["active_mask"], "max_abs_err": k2_err,
+         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "brick_integrate", "route": "cuda",
+         "source": "reconplan_tpu_torch/csrc/brick_integrate.cu",
+         "replaces": "reconplan_tpu/ops/tsdf_brick.py:682",
+         "launches": launches["brick_integrate"], "max_abs_err": k1_err,
+         "ms": k1_ms, "plain_ms": k1_plain_ms},
+    ]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

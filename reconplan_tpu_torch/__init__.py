@@ -1,0 +1,30 @@
+"""reconplan_tpu_torch — the PyTorch/CUDA port of ``reconplan_tpu``.
+
+The package mirrors the JAX package's module paths and public names, so
+each counterpart is easy to find, and keeps its layouts at public
+functions (``(NB + 1, 8, 128)`` brick planes with the scratch row,
+``(D, H, W)`` dense grids, cam->world poses, depth in raw millimetres with
+``depth_scale``). It imports ``torch`` and never ``jax`` or
+``reconplan_tpu``; the few numpy helpers it needs are copied in.
+
+The two TPU kernels of the fusion path are hand-written CUDA C++ for
+``sm_90a`` (``csrc/``), built with ``nvcc`` into ``_build/`` at first use
+(``ops/kernels/build.py``). Each wrapper runs its kernel on CUDA tensors
+and its plain PyTorch version on CPU tensors.
+
+Subpackages
+-----------
+utils     device resolution
+io        mesh IO, frame sets, splat renderer
+ops       dense TSDF, brick TSDF, marching cubes, nearest neighbours, kernels
+recon     fusion pipeline, Chamfer metrics
+"""
+
+import torch as _torch
+
+__version__ = "0.1.0"
+
+# The JAX package runs its geometry products at precision=HIGHEST. TF32 is
+# the GPU form of the TPU's bf16 matmul trap, so keep full f32 products.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False

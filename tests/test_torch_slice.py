@@ -1,0 +1,158 @@
+"""The whole fusion slice through the port against the JAX package.
+
+An 8-frame banana orbit at 128x256, rendered once by the port's splat
+camera, goes through the port's ``FusionPipeline(engine="brick")`` (the
+kernels' plain versions on the CPU) and the JAX ``FusionPipeline(
+engine="dense")``; both meshes are scored by ``chamfer_to_mesh`` against
+the YCB banana. Also: the port runs in a process where JAX cannot be
+imported, its launch counters stay 0 on the CPU, and the kernel build
+refuses clearly without ``nvcc``.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from reconplan_tpu.io.frames import FrameSet as JFrameSet
+from reconplan_tpu.recon import fusion as jfusion
+from reconplan_tpu.recon import metrics as jmetrics
+from reconplan_tpu_torch.io.frames import FrameSet
+from reconplan_tpu_torch.io.meshio import load_mesh
+from reconplan_tpu_torch.io.render import SplatCamera
+from reconplan_tpu_torch.ops.kernels import active_mask, brick_integrate, build
+from reconplan_tpu_torch.recon import fusion as tfusion
+from reconplan_tpu_torch.recon import metrics as tmetrics
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BANANA = os.path.join(REPO, "data/objects/011_banana/tsdf/nontextured.ply")
+GRID = dict(dims=(64, 64, 64), origin=(-0.2, -0.2, -0.15),
+            voxel_size=0.4 / 63)
+N_SURFACE = 50_000
+
+
+def render_orbit(n_frames=8, H=128, W=256, samples=200_000, device="cpu"):
+    """Frames of the banana from an orbit of radius 0.35 m, height 0.25 m."""
+    cam = SplatCamera(width=W, height=H, fx=200.0, fy=200.0, cx=W / 2,
+                      cy=H / 2, samples_per_mesh=samples, device=device)
+    cam.add_mesh_file(BANANA)
+    d, c, p = [], [], []
+    for k in range(n_frames):
+        ang = 2 * np.pi * k / n_frames
+        eye = [0.35 * np.cos(ang), 0.35 * np.sin(ang), 0.25]
+        depth, color, T = cam.take_picture(eye, [0.0, 0.0, 0.0])
+        d.append(depth.cpu().numpy())
+        c.append(color.cpu().numpy())
+        p.append(T)
+    return np.stack(d), np.stack(c), np.stack(p), cam.intrinsics
+
+
+@pytest.fixture(scope="module")
+def orbit():
+    return render_orbit()
+
+
+@pytest.fixture(scope="module")
+def port_result(orbit):
+    d, c, p, K = orbit
+    k1, k2 = brick_integrate.launches, active_mask.launches
+    pipe = tfusion.FusionPipeline(engine="brick", with_color=True,
+                                  device="cpu", **GRID)
+    pipe.integrate(FrameSet(depth=d, color=c, poses=p, intrinsics=K))
+    tris, cols = pipe.extract_mesh(with_colors=True)
+    v, f = load_mesh(BANANA)
+    ch = tmetrics.chamfer_to_mesh(tris.reshape(-1, 3), v, f,
+                                  n_surface_samples=N_SURFACE)
+    launched = (brick_integrate.launches - k1, active_mask.launches - k2)
+    return tris.numpy(), cols.numpy(), ch, launched
+
+
+def test_slice_matches_jax_dense_pipeline(orbit, port_result):
+    d, c, p, K = orbit
+    pipe = jfusion.FusionPipeline(engine="dense", **GRID)
+    pipe.integrate(JFrameSet(depth=d, color=c, poses=p, intrinsics=K))
+    tris_j = pipe.extract_mesh()
+    v, f = load_mesh(BANANA)
+    ch_j = jmetrics.chamfer_to_mesh(tris_j.reshape(-1, 3), v, f,
+                                    n_surface_samples=N_SURFACE)
+    tris, _, ch, _ = port_result
+    print(f"triangles port {len(tris)} jax {len(tris_j)}; Chamfer port "
+          f"{ch[0] * 1e3:.4f} mm jax {ch_j[0] * 1e3:.4f} mm")
+    assert len(tris_j) > 500
+    assert abs(len(tris) - len(tris_j)) <= 0.005 * len(tris_j)
+    assert abs(ch[0] - ch_j[0]) <= 0.01 * ch_j[0]
+
+
+def test_slice_outputs_are_sane(port_result):
+    tris, cols, ch, _ = port_result
+    assert tris.shape[1:] == (3, 3) and np.isfinite(tris).all()
+    assert cols.shape == tris.shape
+    assert 0.0 <= cols.min() and cols.max() <= 1.0 and cols.max() > 0.1
+    # a 6.3 mm voxel bounds the accuracy at this size
+    assert ch[0] < 8e-3
+
+
+def test_launch_counters_stay_zero_on_cpu(port_result):
+    assert port_result[3] == (0, 0)
+    assert brick_integrate.launches == 0 and active_mask.launches == 0
+
+
+def test_port_runs_with_jax_blocked():
+    """A process in which ``import jax`` and ``import reconplan_tpu`` fail
+    imports the port and runs a tiny slice."""
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["reconplan_tpu"] = None
+import numpy as np, torch
+torch.set_num_threads(2)
+import reconplan_tpu_torch
+from reconplan_tpu_torch.bench import make_frames
+from reconplan_tpu_torch.io import FrameSet
+from reconplan_tpu_torch.recon import FusionPipeline, chamfer_distance
+d, p, K = make_frames(4, H=48, W=64, fx=60.0, fy=60.0)
+pipe = FusionPipeline(dims=(32, 32, 32), origin=(-0.16,) * 3,
+                      voxel_size=0.32 / 31, device="cpu")
+pipe.integrate(FrameSet(depth=d, poses=p, intrinsics=K))
+tris = pipe.extract_mesh()
+assert len(tris) > 50, len(tris)
+r = tris.reshape(-1, 3).norm(dim=-1)
+assert (r - 0.12).abs().mean() < 0.01, (r - 0.12).abs().mean()
+ch, _, _ = chamfer_distance(tris.reshape(-1, 3), tris.reshape(-1, 3))
+assert float(ch) == 0.0
+assert not [m for m in sys.modules if m.startswith("jax")
+            and sys.modules[m] is not None]
+print("ok", len(tris))
+"""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    from torch.utils import cpp_extension
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build()
+    assert not list(tmp_path.iterdir())
+
+
+def test_fuse_frameset_autofits_the_grid(orbit):
+    d, c, p, K = orbit
+    pipe = tfusion.fuse_frameset(
+        FrameSet(depth=d[:2], poses=p[:2], intrinsics=K), dims=(32, 32, 32),
+        device="cpu")
+    assert pipe.engine == "brick"
+    pts = pipe.extract_points()
+    assert len(pts) > 50 and torch.isfinite(pts).all()
