@@ -5,17 +5,28 @@
 Phases (each prints a line; any failure raises and the exit code is not 0):
   1. device   require a CUDA card; print nvidia-smi's name and power limit
   2. build    compile the CUDA kernels from reconplan_tpu_torch/csrc
-  3. kernels  K2 and K1 against their plain PyTorch versions on the card, at
-              the bench shapes (512^3, one 8-frame chunk of the bench scene
-              with the real ids / fbits / live count of the mask pipeline;
-              K1 again with color on a 4-frame chunk), with CUDA-event times
+  3. kernels  K2, K1 and K3 against their plain PyTorch versions on the
+              card, at the bench shapes (512^3, one 8-frame chunk of the
+              bench scene with the real ids / fbits / live count of the mask
+              pipeline; K1 again with color on a 4-frame chunk; K3 with the
+              host-compacted ids of the chunk padded to 512), with CUDA-event
+              times
   4. check    the brick path against the dense engine on a small input
   5. bench    integrate_frames_bricked_device, 32 frames of 640x480 at 512^3
   6. banana   SplatCamera orbit of the YCB banana -> FusionPipeline(brick,
               512^3, color) -> extract_mesh -> chamfer_to_mesh (<= 1 mm)
-Launch counters are zeroed just before phase 5 and read after phase 6: both
-kernels must have been launched by the main path. The line before the last
-is a JSON summary of the kernels; the last line is the run's JSON status.
+  7. bricked  integrate_frames_bricked (host-compacted, K3) on the bench
+              scene, held against phase 5's grid and the dense engine on
+              the voxels both brick paths weight as the dense engine does
+  8. sharded  sharded_integrate_frames_bricked, 4 shards on the card at
+              512^3, gathered: bit-identical to a one-chunk bricked run
+  9. banana   points_to_mesh_distance of the banana mesh's vertices to the
+              GT triangles (mean <= 1 mm), and raycast_depth of the fused
+              banana grid against the splat depth of an orbit view
+Launch counters are zeroed just before phase 5 and read after phase 6 (K1
+and K2), and zeroed before and read after each of phases 7 and 8 (K3): each
+kernel must have been launched by its paths. The line before the last is a
+JSON summary of the kernels; the last line is the run's JSON status.
 """
 
 import json
@@ -55,9 +66,14 @@ def main():
     from reconplan_tpu_torch.ops import tsdf_brick as tb
     from reconplan_tpu_torch.ops.kernels import (
         active_mask, active_mask_reference, brick_integrate,
+        brick_integrate_fixed, brick_integrate_fixed_reference,
         brick_integrate_reference, build)
+    from reconplan_tpu_torch.parallel import (
+        gather_brick_grid, make_sharded_brick_grid,
+        sharded_integrate_frames_bricked)
     from reconplan_tpu_torch.recon.fusion import FusionPipeline
-    from reconplan_tpu_torch.recon.metrics import chamfer_to_mesh
+    from reconplan_tpu_torch.recon.metrics import (
+        chamfer_to_mesh, points_to_mesh_distance)
     from reconplan_tpu_torch.utils.device import card_summary
 
     dev = torch.device("cuda")
@@ -135,7 +151,27 @@ def main():
     phase("kernels", f"K1 brick_integrate color (4 frames): sdf max err "
           f"{k1c_err:.3g}, weight and rgb identical, {n_live_c} live bricks "
           f"| kernel {k1c_ms:.4f} ms, plain {k1c_plain_ms:.4f} ms")
-    del grid
+    # K3 on the same chunk: the host path's compacted ids, padded to 512
+    mask = tb.active_brick_mask(bd, grid.origin, VOXEL, trunc, d8, T8, *intr)
+    ids_np, n_k3 = tb.host_active_ids(mask, bd, NB)
+    ids = torch.as_tensor(ids_np, device=dev)
+    planes = (grid.sdf.clone(), grid.weight.clone())
+    ref = tuple(a.clone() for a in planes)
+    rest = (ids, 0, NB, T8, intr, d8, grid.origin, bd, VOXEL, trunc,
+            1000.0, 3.0, 64.0)
+    brick_integrate_fixed(*planes, *rest)
+    brick_integrate_fixed_reference(*ref, *rest)
+    torch.cuda.synchronize()
+    k3_err = (planes[0] - ref[0]).abs().max().item()
+    if k3_err > 1e-6 or not torch.equal(planes[1], ref[1]):
+        raise AssertionError(f"K3 sdf err {k3_err} or weight differs")
+    k3_ms = events_ms(lambda: brick_integrate_fixed(*planes, *rest))
+    k3_plain_ms = events_ms(
+        lambda: brick_integrate_fixed_reference(*ref, *rest), reps=3)
+    phase("kernels", f"K3 brick_integrate_fixed (8 frames): sdf max err "
+          f"{k3_err:.3g}, weight identical, {n_k3} bricks padded to "
+          f"{len(ids_np)} | kernel {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms")
+    del grid, planes, ref
 
     # --- 4. the whole brick path against the dense engine, small input -----
     sd, sp, sK = make_frames(8, H=120, W=160, fx=150.0, fy=150.0)
@@ -169,7 +205,8 @@ def main():
     phase("bench", f"32 frames 640x480 -> {N}^3: n_active {int(n_active)}, "
           f"{32 / dt:.1f} frames/s cold-grid wall clock "
           f"(host clock, one batch) | {card}")
-    del grid, w
+    device_grid = grid  # phase 7 holds the host-compacted path against it
+    del w
 
     # --- 6. the main path: banana orbit, color, mesh, Chamfer ---------------
     times = {}
@@ -214,6 +251,111 @@ def main():
           + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
     if ch > 1e-3:
         raise AssertionError(f"banana Chamfer {ch * 1e3:.4f} mm > 1.0 mm")
+    # --- 7. the host-compacted path: bench scene through K3 ---------------
+    brick_integrate_fixed.launches = 0
+    grid = tb.make_brick_grid((N,) * 3, ORIGIN, VOXEL, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid, n_bricked = tb.integrate_frames_bricked(grid, d_all, p_all, *K)
+    torch.cuda.synchronize()
+    dt_cold = time.perf_counter() - t0
+    k3_bricked = brick_integrate_fixed.launches
+    # Each brick path folds a subset of the frames into a voxel, and not
+    # the same subset, so equal weights alone do not mean equal frames. A
+    # weight equal to the dense engine's, which folds every frame, does:
+    # compare where all three weights agree. (At 512^3 the dense engine
+    # works in z-chunks whose origins round apart from the bricks' voxel
+    # coordinates, so its sdf is no bit-level reference here; phase 4
+    # holds the sdf against it where it is one.)
+    dense = tsdf_ops.integrate_frames(
+        tsdf_ops.make_grid((N,) * 3, ORIGIN, VOXEL, device=dev), d_all,
+        p_all, *K)
+    sdf_b, w_b = tb.to_dense(grid)
+    sdf_v, w_v = tb.to_dense(device_grid)
+    same = (w_b == dense.weight) & (w_v == dense.weight) & (w_b > 0)
+    bricked_err = (sdf_b - sdf_v)[same].abs().max().item()
+    n_same = same.sum().item()
+    if n_same < 100_000 or bricked_err > 1e-6:
+        raise AssertionError(f"bricked vs device path: {n_same} voxels, "
+                             f"max sdf err {bricked_err}")
+    del dense, sdf_b, w_b, sdf_v, w_v, same
+    t0 = time.perf_counter()
+    tb.integrate_frames_bricked(grid, d_all, p_all, *K)
+    torch.cuda.synchronize()
+    dt_warm = time.perf_counter() - t0
+    phase("bricked", f"integrate_frames_bricked 32 frames -> {N}^3: "
+          f"n_active {n_bricked}, {k3_bricked} K3 launches, "
+          f"{32 / dt_cold:.1f} frames/s cold grid, {32 / dt_warm:.1f} warm "
+          f"(host clock, one batch each) | vs the device path on {n_same} "
+          f"voxels both weight as the dense engine: max sdf err "
+          f"{bricked_err:.3g} | {card}")
+    del grid, device_grid
+
+    # --- 8. the brick-sharded path: 4 shards on the one card --------------
+    shards, per_shard = 4, 8192
+    one = tb.make_brick_grid((N,) * 3, ORIGIN, VOXEL, device=dev)
+    one, n_one = tb.integrate_frames_bricked(
+        one, d_all, p_all, *K, frames_per_dispatch=32, dilate_active=False)
+    mask = tb.active_brick_mask(bd, one.origin, VOXEL, trunc, d_all,
+                                T_all.contiguous(), *intr)
+    counts = mask.reshape(shards, -1).sum(dim=1).tolist()
+    if max(counts) > per_shard:
+        raise AssertionError(f"a shard would drop bricks: {counts} active, "
+                             f"cap {per_shard}")
+    brick_integrate_fixed.launches = 0
+    g_nbl = make_sharded_brick_grid((N,) * 3, ORIGIN, VOXEL,
+                                    devices=[dev] * shards)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_nbl, n_sharded = sharded_integrate_frames_bricked(
+        g_nbl, d_all, p_all, *K, max_active_per_device=per_shard)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k3_sharded = brick_integrate_fixed.launches
+    gathered = gather_brick_grid(g_nbl)
+    if not (int(n_sharded) == n_one and torch.equal(gathered.sdf, one.sdf)
+            and torch.equal(gathered.weight, one.weight)):
+        raise AssertionError("sharded grid differs from the bricked run")
+    phase("sharded", f"{shards} shards x {g_nbl[1]} bricks, active "
+          f"{counts} (cap {per_shard}, none dropped), {k3_sharded} K3 "
+          f"launches, {32 / dt:.1f} frames/s (host clock, one batch) | "
+          f"gathered planes bit-identical to the one-chunk bricked run")
+    del one, g_nbl, gathered, mask
+    launches["brick_integrate_fixed"] = k3_bricked + k3_sharded
+
+    # --- 9. the banana, continued: exact mesh distance and a raycast ------
+    t0 = time.perf_counter()
+    verts = torch.unique(tris.reshape(-1, 3), dim=0)
+    gt_tris = torch.as_tensor(gt_v[gt_f], dtype=torch.float32, device=dev)
+    p2m = points_to_mesh_distance(verts, gt_tris)
+    p2m_mm = p2m.mean().item() * 1e3
+    times_p2m = time.perf_counter() - t0
+    if not (torch.isfinite(p2m).all() and p2m_mm <= 1.0):
+        raise AssertionError(f"banana points_to_mesh_distance {p2m_mm} mm")
+    sdf_d, w_d = tb.to_dense(pipe.grid)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dense = tsdf_ops.TSDFGrid(
+        sdf_d, w_d, torch.zeros((0, 0, 0, 3), **f32), pipe.grid.origin,
+        torch.tensor(pipe.grid.voxel_size, **f32),
+        torch.tensor(pipe.grid.trunc, **f32))
+    # steps of one voxel over the banana's depth range
+    ray = tsdf_ops.raycast_depth(dense, fp[0], *cam.intrinsics, cam.height,
+                                 cam.width, near=0.25, far=0.65,
+                                 n_steps=512)
+    splat = fd[0] / 1000.0
+    both = (ray > 0) & (splat > 0)
+    hit_share = (ray > 0).float().mean().item()
+    ray_med = (ray - splat)[both].abs().median().item()
+    if not (torch.isfinite(ray).all() and both.sum().item() > 1000
+            and ray_med < 0.01):
+        raise AssertionError(f"raycast: {both.sum().item()} common hits, "
+                             f"median |d| {ray_med}")
+    phase("banana", f"points_to_mesh_distance of {len(verts)} mesh vertices "
+          f"to {len(gt_tris)} GT triangles: mean {p2m_mm:.4f} mm, max "
+          f"{p2m.max().item() * 1e3:.4f} mm ({times_p2m:.3f} s) | "
+          f"raycast_depth {cam.width}x{cam.height}: hit share "
+          f"{hit_share:.4f}, median |ray - splat| {ray_med * 1e3:.4f} mm on "
+          f"{both.sum().item()} pixels")
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"main path never launched {name}")
@@ -230,6 +372,11 @@ def main():
          "replaces": "reconplan_tpu/ops/tsdf_brick.py:682",
          "launches": launches["brick_integrate"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "brick_integrate_fixed", "route": "cuda",
+         "source": "reconplan_tpu_torch/csrc/brick_integrate_fixed.cu",
+         "replaces": "reconplan_tpu/ops/tsdf_brick.py:503",
+         "launches": launches["brick_integrate_fixed"],
+         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

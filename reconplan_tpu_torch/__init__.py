@@ -7,7 +7,7 @@ functions (``(NB + 1, 8, 128)`` brick planes with the scratch row,
 ``depth_scale``). It imports ``torch`` and never ``jax`` or
 ``reconplan_tpu``; the few numpy helpers it needs are copied in.
 
-The two TPU kernels of the fusion path are hand-written CUDA C++ for
+The three TPU kernels of the fusion stack are hand-written CUDA C++ for
 ``sm_90a`` (``csrc/``), built with ``nvcc`` into ``_build/`` at first use
 (``ops/kernels/build.py``). Each wrapper runs its kernel on CUDA tensors
 and its plain PyTorch version on CPU tensors.
@@ -16,8 +16,10 @@ Subpackages
 -----------
 utils     device resolution
 io        mesh IO, frame sets, splat renderer
-ops       dense TSDF, brick TSDF, marching cubes, nearest neighbours, kernels
-recon     fusion pipeline, Chamfer metrics
+ops       dense TSDF and raycast, brick TSDF, marching cubes, nearest
+          neighbours, kernels
+parallel  brick-sharded fusion over a list of devices
+recon     fusion pipeline, Chamfer and point-to-mesh metrics
 """
 
 import torch as _torch

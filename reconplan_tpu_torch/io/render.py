@@ -101,22 +101,56 @@ class SplatCamera:
     def intrinsics(self):
         return (self.fx, self.fy, self.cx, self.cy)
 
-    def add_mesh(self, vertices, faces):
+    def add_mesh(self, vertices, faces, translate=(0, 0, 0), color=None,
+                 samples=None):
         """Add a mesh to the scene (pre-sampled into surface splats),
-        shaded by normal (lambertian, light from +z)."""
-        pts, nrm = sample_mesh_surface(vertices, faces, self._samples,
+        moved by ``translate``. ``color=None`` shades by normal
+        (lambertian, light from +z); else one RGB in [0, 1]."""
+        pts, nrm = sample_mesh_surface(vertices, faces,
+                                       samples or self._samples,
                                        seed=self._seed)
-        lam = np.clip(nrm @ np.array([0.3, 0.2, 0.93]), 0.15, 1.0)
-        cols = np.stack([lam * 0.9, lam * 0.8, lam * 0.2], axis=-1)  # banana-ish
+        pts = pts + np.asarray(translate, dtype=np.float64)
+        if color is None:
+            lam = np.clip(nrm @ np.array([0.3, 0.2, 0.93]), 0.15, 1.0)
+            cols = np.stack([lam * 0.9, lam * 0.8, lam * 0.2], axis=-1)  # banana-ish
+        else:
+            cols = np.broadcast_to(np.asarray(color, dtype=np.float64),
+                                   pts.shape)
         as_t = lambda a: torch.as_tensor(  # noqa: E731
             a.astype(np.float32), device=self.device)
         self._points = torch.cat([self._points, as_t(pts)])
         self._colors = torch.cat([self._colors, as_t(cols)])
         return self
 
-    def add_mesh_file(self, path):
+    def add_mesh_file(self, path, **kwargs):
         v, f = load_mesh(path)
-        return self.add_mesh(v, f)
+        return self.add_mesh(v, f, **kwargs)
+
+    def add_checker_floor(self, center=(0.0, 0.0), size=0.5, tiles=8,
+                          z=0.0, samples_per_tile=4000, seed=3):
+        """Add a floor patch of randomly colored tiles around ``center``.
+
+        A planar, textured context under the object is what makes
+        pose-free sequential registration well-posed (a lone smooth object
+        is near-ambiguous for ICP). The tile colors are random, not a
+        two-color checkerboard, whose 180-degree symmetry would leave
+        global registration a perfect wrong optimum.
+        """
+        cx, cy = center
+        tile = size / tiles
+        x0, y0 = cx - size / 2, cy - size / 2
+        quad_f = np.array([[0, 1, 2], [0, 2, 3]], dtype=np.int32)
+        palette = np.random.RandomState(seed).uniform(
+            0.15, 0.85, (tiles, tiles, 3))
+        for i in range(tiles):
+            for j in range(tiles):
+                xa, ya = x0 + i * tile, y0 + j * tile
+                v = np.array([[xa, ya, z], [xa + tile, ya, z],
+                              [xa + tile, ya + tile, z], [xa, ya + tile, z]],
+                             dtype=np.float64)
+                self.add_mesh(v, quad_f, color=palette[i, j],
+                              samples=samples_per_tile)
+        return self
 
     def take_picture(self, eye, target):
         """Render from ``eye`` looking at ``target``.

@@ -1,2 +1,3 @@
-"""Dense and brick TSDF fusion, table marching cubes, nearest neighbours,
-and the CUDA kernels of the brick path (``ops.kernels``)."""
+"""Dense and brick TSDF fusion, raycasting, marching cubes (table and
+tetra), nearest neighbours, and the CUDA kernels of the brick paths
+(``ops.kernels``)."""

@@ -35,6 +35,42 @@ def _voxel_offsets(device):
     return (lane % 16).float(), (lane // 16).float(), (v // 128).float()
 
 
+def _voxel_world(ids, brick_dims, origin, voxel_size):
+    """World (x, y, z) f32 of the 1024 voxels of each brick id, each
+    (M, 1024), in the kernels' order of operations."""
+    _, bh, bw = brick_dims
+    voxel = float(np.float32(voxel_size))
+    bz = (ids // (bh * bw)).float()[:, None]
+    by = ((ids // bw) % bh).float()[:, None]
+    bx = (ids % bw).float()[:, None]
+    lx, ly, lz = _voxel_offsets(ids.device)
+    return (origin[0] + (bx * 16 + lx) * voxel,
+            origin[1] + (by * 8 + ly) * voxel,
+            origin[2] + (bz * 8 + lz) * voxel)
+
+
+def _observe(pose, wx, wy, wz, depth, intr, depth_scale, depth_max, trunc):
+    """One frame's observation of the voxels, as the kernels make it:
+    project through the (16,) row-major w2c ``pose``, round to a pixel,
+    sample ``depth`` (Hd, Wd). ``depth_scale`` and ``trunc`` are 0-d f32
+    tensors (divisors). Returns (w_obs 0/1 f32, tsdf_obs, pixel index)."""
+    fx, fy, cx, cy = intr
+    Hd, Wd = depth.shape
+    r = pose
+    x = r[0] * wx + r[1] * wy + r[2] * wz + r[3]
+    y = r[4] * wx + r[5] * wy + r[6] * wz + r[7]
+    z = r[8] * wx + r[9] * wy + r[10] * wz + r[11]
+    zs = torch.where(z.abs() < 1e-6, 1e-6, z)
+    ui = torch.round(x / zs * fx + cx).to(torch.int32)
+    vi = torch.round(y / zs * fy + cy).to(torch.int32)
+    in_img = (ui >= 0) & (ui < Wd) & (vi >= 0) & (vi < Hd) & (z > 1e-4)
+    pix = (vi.clamp(0, Hd - 1) * Wd + ui.clamp(0, Wd - 1)).long()
+    d = depth.reshape(-1)[pix] / depth_scale
+    sdf_obs = d - z
+    ok = in_img & (d > 0.0) & (d < depth_max) & (sdf_obs > -trunc)
+    return ok.float(), torch.clamp(sdf_obs / trunc, -1.0, 1.0), pix
+
+
 def brick_integrate_reference(sdf_b, weight_b, rgb_b, ids, fbits, n_live,
                               T_w2c, intr, depths, colors, origin,
                               brick_dims, voxel_size, trunc, depth_scale,
@@ -45,14 +81,11 @@ def brick_integrate_reference(sdf_b, weight_b, rgb_b, ids, fbits, n_live,
     by a Python scalar multiplies by the reciprocal instead, which would
     round differently from the kernel's divide.
     """
-    _, bh, bw = brick_dims
     dev = sdf_b.device
     M = ids.shape[0]
-    F, Hd, Wd = depths.shape
-    fx, fy, cx, cy = intr
+    F = depths.shape[0]
     depth_scale = scalar_tensor(depth_scale, dev)
     trunc = scalar_tensor(float(np.float32(trunc)), dev)
-    voxel = float(np.float32(voxel_size))
     rows = ids.long()
     live = torch.arange(M, device=dev) < n_live.reshape(())
     sdf = sdf_b.reshape(-1, BRICK_VOXELS)[rows]
@@ -62,31 +95,12 @@ def brick_integrate_reference(sdf_b, weight_b, rgb_b, ids, fbits, n_live,
         cr = (packed & 255).float()
         cg = ((packed >> 8) & 255).float()
         cb = ((packed >> 16) & 255).float()
-    bz = (ids // (bh * bw)).float()[:, None]
-    by = ((ids // bw) % bh).float()[:, None]
-    bx = (ids % bw).float()[:, None]
-    lx, ly, lz = _voxel_offsets(dev)
-    wx = origin[0] + (bx * 16 + lx) * voxel
-    wy = origin[1] + (by * 8 + ly) * voxel
-    wz = origin[2] + (bz * 8 + lz) * voxel
+    wx, wy, wz = _voxel_world(ids, brick_dims, origin, voxel_size)
     P = T_w2c.reshape(F, 16)
     for f in range(F):
         hit = (live & (((fbits >> f) & 1) > 0))[:, None]
-        r = P[f]
-        x = r[0] * wx + r[1] * wy + r[2] * wz + r[3]
-        y = r[4] * wx + r[5] * wy + r[6] * wz + r[7]
-        z = r[8] * wx + r[9] * wy + r[10] * wz + r[11]
-        zs = torch.where(z.abs() < 1e-6, 1e-6, z)
-        ui = torch.round(x / zs * fx + cx).to(torch.int32)
-        vi = torch.round(y / zs * fy + cy).to(torch.int32)
-        in_img = (ui >= 0) & (ui < Wd) & (vi >= 0) & (vi < Hd) & (z > 1e-4)
-        pix = (vi.clamp(0, Hd - 1) * Wd + ui.clamp(0, Wd - 1)).long()
-        d = depths[f].reshape(-1)[pix] / depth_scale
-        ok = in_img & (d > 0.0) & (d < depth_max)
-        sdf_obs = d - z
-        ok = ok & (sdf_obs > -trunc)
-        tsdf_obs = torch.clamp(sdf_obs / trunc, -1.0, 1.0)
-        w_obs = ok.float()
+        w_obs, tsdf_obs, pix = _observe(P[f], wx, wy, wz, depths[f], intr,
+                                        depth_scale, depth_max, trunc)
         w_new = w + w_obs
         inv = 1.0 / torch.clamp(w_new, min=1.0)
         sdf_n = (sdf * w + tsdf_obs * w_obs) * inv

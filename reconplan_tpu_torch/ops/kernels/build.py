@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
-All ``reconplan_tpu_torch/csrc/*.cu`` sources compile into one shared
-library with a plain C interface, ``_build/libreconplan_kernels.so``, at
-first use. The library is rebuilt when the hash of the sources or of the
-flags changes; it is never built at import time. A missing ``nvcc`` or a
-compile error raises.
+Each ``reconplan_tpu_torch/csrc/*.cu`` source compiles to an object in
+its own ``nvcc`` process, all started together, and the objects link into
+one shared library with a plain C interface,
+``_build/libreconplan_kernels.so``, at first use. The library is rebuilt
+when the hash of the sources or of the flags changes; it is never built at
+import time. A missing ``nvcc`` or a compile error raises.
 
 ``-fmad=false`` keeps every multiply and add separately rounded, so the
 kernels equal their plain PyTorch versions bit for bit.
@@ -27,8 +28,7 @@ BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libreconplan_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -41,6 +41,9 @@ _SIGNATURES = {
     ),
     "brick_integrate_launch": (
         [_P] * 6 + [_I] + [_P] * 4 + [_I] * 5 + [_F] * 9 + [_P]
+    ),
+    "brick_integrate_fixed_launch": (
+        [_P] * 3 + [_I] * 3 + [_P] * 3 + [_I] * 5 + [_F] * 9 + [_P]
     ),
 }
 
@@ -85,22 +88,38 @@ def build(verbose: bool = False) -> Path:
             "kernels of reconplan_tpu_torch cannot be built"
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-           *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stderr.strip())
-    os.replace(tmp, lib)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in sources()]
+        out = Path(tmp) / LIB_NAME
+        log = _run_all([
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+             str(src)]
+            for src, obj in zip(sources(), objs)
+        ])
+        log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(out),
+                          *map(str, objs)]])
+        if verbose:
+            print("\n".join(filter(None, log)))
+        os.replace(out, lib)
     stamp.write_text(digest)
     return lib
+
+
+def _run_all(cmds) -> list[str]:
+    """Run the commands as parallel processes and wait for all of them;
+    raise with the output of the first that failed, else return each
+    one's stderr (ptxas's register report)."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate() for proc in procs]
+    for cmd, proc, (stdout, stderr) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{stdout}\n{stderr}"
+            )
+    return [stderr.strip() for _, stderr in outs]
 
 
 @functools.cache

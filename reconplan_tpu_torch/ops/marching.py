@@ -1,17 +1,22 @@
-"""Iso-surface extraction from TSDF grids: table marching cubes.
+"""Iso-surface extraction from TSDF grids: marching cubes.
 
-Port of the table variant of ``reconplan_tpu.ops.marching``. The
-256-case triangle table is generated at import by the same numpy
-generator (:func:`_build_mc_tables`, copied): per sign case each cube face
-is linked by marching squares with a sign-only ambiguity rule, the
-segments chain into closed polygons and fan-triangulate, which makes the
-table watertight by construction.
+Port of ``reconplan_tpu.ops.marching``, both variants:
+
+* ``variant="table"`` (default): classic 256-case table marching cubes.
+  The triangle table is generated at import by the same numpy generator
+  (:func:`_build_mc_tables`, copied): per sign case each cube face is
+  linked by marching squares with a sign-only ambiguity rule, the
+  segments chain into closed polygons and fan-triangulate, which makes
+  the table watertight by construction. Crossing points are interpolated
+  in a canonical global-corner order, so the two cubes sharing an edge
+  produce bitwise identical vertices.
+* ``variant="tetra"``: marching tetrahedra (6 tets a cube around the 0-6
+  diagonal, 16-case table), the cross-check twin; it emits about twice
+  the triangles of the table variant.
 
 Two phases: :func:`active_cubes` marks cubes straddling the zero level,
-``torch.nonzero`` compacts them, :func:`triangulate_cubes_table` emits
-their triangles. Crossing points are interpolated in a canonical
-global-corner order, so the two cubes sharing an edge produce bitwise
-identical vertices.
+``torch.nonzero`` compacts them, and :func:`triangulate_cubes_table` or
+:func:`triangulate_cubes` emits their triangles.
 """
 
 from __future__ import annotations
@@ -29,6 +34,52 @@ _CORNERS = np.array(
     ],
     dtype=np.int32,
 )
+
+# 6-tet decomposition of the cube around the 0-6 diagonal; all share
+# corners 0 and 6 so neighboring cubes tessellate consistently.
+_TETS = np.array(
+    [
+        [0, 5, 1, 6],
+        [0, 1, 2, 6],
+        [0, 2, 3, 6],
+        [0, 3, 7, 6],
+        [0, 7, 4, 6],
+        [0, 4, 5, 6],
+    ],
+    dtype=np.int32,
+)
+
+# tet edges as (corner, corner) local indices
+_TET_EDGES = np.array(
+    [[0, 1], [0, 2], [0, 3], [1, 2], [1, 3], [2, 3]], dtype=np.int32
+)
+
+# triangle table for the 16 sign cases (bit i set = corner i inside/below
+# iso). Each case lists up to 2 triangles of tet-edge ids; -1 pads.
+# Winding is normalized at runtime against the SDF gradient.
+_TET_TRIS = np.array(
+    [
+        [[-1, -1, -1], [-1, -1, -1]],  # 0000
+        [[0, 2, 1], [-1, -1, -1]],     # 0001: corner 0 in
+        [[0, 3, 4], [-1, -1, -1]],     # 0010: corner 1
+        [[1, 3, 4], [1, 4, 2]],        # 0011: corners 0,1
+        [[1, 5, 3], [-1, -1, -1]],     # 0100: corner 2
+        [[0, 5, 3], [0, 2, 5]],        # 0101: corners 0,2
+        [[0, 1, 5], [0, 5, 4]],        # 0110: corners 1,2
+        [[2, 5, 4], [-1, -1, -1]],     # 0111: corners 0,1,2
+        [[2, 4, 5], [-1, -1, -1]],     # 1000: corner 3
+        [[0, 4, 5], [0, 5, 1]],        # 1001: corners 0,3
+        [[0, 3, 5], [0, 5, 2]],        # 1010: corners 1,3
+        [[1, 5, 3], [-1, -1, -1]],     # 1011: complement of 0100
+        [[1, 4, 3], [1, 2, 4]],        # 1100: corners 2,3
+        [[0, 4, 3], [-1, -1, -1]],     # 1101: complement of 0010
+        [[0, 1, 2], [-1, -1, -1]],     # 1110: complement of 0001
+        [[-1, -1, -1], [-1, -1, -1]],  # 1111
+    ],
+    dtype=np.int32,
+)
+
+MAX_TRIS_PER_CUBE = 12  # 6 tets x 2 triangles
 
 # cube edges as (corner, corner); standard MC numbering
 _CUBE_EDGES = np.array(
@@ -148,6 +199,82 @@ def active_cubes(grid: TSDFGrid, weight_min: float = 1.0):
     return any_neg & ~all_neg & all_obs
 
 
+def _cube_corners(grid: TSDFGrid, cube_idx):
+    """Corner grid indices (cz, cy, cx) (M, 8), sdf values (M, 8) and world
+    positions (M, 8, 3) of the given cubes."""
+    D, H, W = grid.sdf.shape
+    ch, cw = H - 1, W - 1
+    cube_idx = cube_idx.long()
+    zi = cube_idx // (ch * cw)
+    yi = (cube_idx // cw) % ch
+    xi = cube_idx % cw
+    corners = torch.as_tensor(_CORNERS, dtype=torch.int64,
+                              device=grid.sdf.device)
+    cz = zi[:, None] + corners[None, :, 2]
+    cy = yi[:, None] + corners[None, :, 1]
+    cx = xi[:, None] + corners[None, :, 0]
+    vals = grid.sdf[cz, cy, cx]
+    pos = (grid.origin
+           + torch.stack([cx, cy, cz], dim=-1).float() * grid.voxel_size)
+    return (cz, cy, cx), vals, pos
+
+
+def _interpolate(va, vb, pa, pb):
+    """Zero crossing between two corners: t = va / (va - vb), clipped."""
+    denom = va - vb
+    t = va / torch.where(denom.abs() < 1e-12, 1e-12, denom)
+    t = torch.clamp(t, 0.0, 1.0)
+    return pa + t[..., None] * (pb - pa)
+
+
+def _orient(vals, verts):
+    """Wind each triangle so its normal points along the local SDF gradient
+    (outside = positive sdf). ``verts`` (M, T, 3, 3)."""
+    def mean4(idx):
+        return vals[:, idx].mean(dim=1)
+
+    gx = mean4([1, 2, 5, 6]) - mean4([0, 3, 4, 7])
+    gy = mean4([2, 3, 6, 7]) - mean4([0, 1, 4, 5])
+    gz = mean4([4, 5, 6, 7]) - mean4([0, 1, 2, 3])
+    grad = torch.stack([gx, gy, gz], dim=-1)[:, None, :]
+    n = torch.linalg.cross(
+        verts[:, :, 1] - verts[:, :, 0], verts[:, :, 2] - verts[:, :, 0]
+    )
+    flip = (n * grad).sum(dim=-1) < 0
+    v1 = torch.where(flip[..., None], verts[:, :, 2], verts[:, :, 1])
+    v2 = torch.where(flip[..., None], verts[:, :, 1], verts[:, :, 2])
+    return torch.stack([verts[:, :, 0], v1, v2], dim=2)
+
+
+def triangulate_cubes(grid: TSDFGrid, cube_idx):
+    """Marching-tetrahedra triangle emission for the given cubes.
+
+    ``cube_idx`` (M,) linear indices into the (D-1, H-1, W-1) cube grid.
+    Returns verts (M, MAX_TRIS_PER_CUBE, 3, 3) world-space triangle
+    vertices and tri_valid (M, MAX_TRIS_PER_CUBE).
+    """
+    dev = grid.sdf.device
+    _, vals, pos = _cube_corners(grid, cube_idx)
+    tets = torch.as_tensor(_TETS, dtype=torch.int64, device=dev)
+    tv = vals[:, tets]  # (M, 6 tets, 4)
+    tp = pos[:, tets]  # (M, 6, 4, 3)
+    inside = (tv < 0).long()
+    case = inside[..., 0] + 2 * inside[..., 1] + 4 * inside[..., 2] \
+        + 8 * inside[..., 3]  # (M, 6)
+    ea = torch.as_tensor(_TET_EDGES[:, 0], dtype=torch.int64, device=dev)
+    eb = torch.as_tensor(_TET_EDGES[:, 1], dtype=torch.int64, device=dev)
+    epts = _interpolate(tv[:, :, ea], tv[:, :, eb], tp[:, :, ea, :],
+                        tp[:, :, eb, :])  # (M, 6 tets, 6 edges, 3)
+    tris_edges = torch.as_tensor(_TET_TRIS, dtype=torch.int64,
+                                 device=dev)[case]  # (M, 6, 2, 3)
+    tri_ok = tris_edges[..., 0] >= 0  # (M, 6, 2)
+    M = vals.shape[0]
+    safe = torch.clamp(tris_edges, min=0).reshape(M, 6, 6)
+    verts = torch.gather(epts, 2, safe[..., None].expand(-1, -1, -1, 3))
+    verts = verts.reshape(M, MAX_TRIS_PER_CUBE, 3, 3)
+    return _orient(vals, verts), tri_ok.reshape(M, MAX_TRIS_PER_CUBE)
+
+
 def triangulate_cubes_table(grid: TSDFGrid, cube_idx):
     """Classic table-MC triangle emission for the given cubes.
 
@@ -156,19 +283,8 @@ def triangulate_cubes_table(grid: TSDFGrid, cube_idx):
     and tri_valid (M, MAX_TRIS_TABLE).
     """
     D, H, W = grid.sdf.shape
-    ch, cw = H - 1, W - 1
     dev = grid.sdf.device
-    cube_idx = cube_idx.long()
-    zi = cube_idx // (ch * cw)
-    yi = (cube_idx // cw) % ch
-    xi = cube_idx % cw
-
-    corners = torch.as_tensor(_CORNERS, dtype=torch.int64, device=dev)
-    cz = zi[:, None] + corners[None, :, 2]
-    cy = yi[:, None] + corners[None, :, 1]
-    cx = xi[:, None] + corners[None, :, 0]
-    vals = grid.sdf[cz, cy, cx]  # (M, 8)
-    pos = grid.origin + torch.stack([cx, cy, cz], dim=-1).float() * grid.voxel_size
+    (cz, cy, cx), vals, pos = _cube_corners(grid, cube_idx)
 
     inside = (vals < 0).long()
     case = (inside << torch.arange(8, device=dev)).sum(dim=-1)  # (M,)
@@ -185,10 +301,7 @@ def triangulate_cubes_table(grid: TSDFGrid, cube_idx):
     vb = torch.where(swap, vals[:, ea], vals[:, eb])
     pa = torch.where(swap[..., None], pos[:, eb], pos[:, ea])  # (M, 12, 3)
     pb = torch.where(swap[..., None], pos[:, ea], pos[:, eb])
-    denom = va - vb
-    t = va / torch.where(denom.abs() < 1e-12, 1e-12, denom)
-    t = torch.clamp(t, 0.0, 1.0)
-    epts = pa + t[..., None] * (pb - pa)  # (M, 12, 3)
+    epts = _interpolate(va, vb, pa, pb)  # (M, 12, 3)
 
     table = torch.as_tensor(_MC_TRI_TABLE, dtype=torch.int64, device=dev)
     tri_edges = table[case]  # (M, Tmax, 3)
@@ -198,31 +311,24 @@ def triangulate_cubes_table(grid: TSDFGrid, cube_idx):
     verts = torch.gather(
         epts, 1, safe.reshape(M, -1)[..., None].expand(-1, -1, 3)
     ).reshape(M, MAX_TRIS_TABLE, 3, 3)
-
-    # winding: normal along the SDF gradient (outside = positive sdf)
-    def mean4(idx):
-        return vals[:, idx].mean(dim=1)
-
-    gx = mean4([1, 2, 5, 6]) - mean4([0, 3, 4, 7])
-    gy = mean4([2, 3, 6, 7]) - mean4([0, 1, 4, 5])
-    gz = mean4([4, 5, 6, 7]) - mean4([0, 1, 2, 3])
-    grad = torch.stack([gx, gy, gz], dim=-1)[:, None, :]
-    n = torch.linalg.cross(
-        verts[:, :, 1] - verts[:, :, 0], verts[:, :, 2] - verts[:, :, 0]
-    )
-    flip = (n * grad).sum(dim=-1) < 0
-    v1 = torch.where(flip[..., None], verts[:, :, 2], verts[:, :, 1])
-    v2 = torch.where(flip[..., None], verts[:, :, 1], verts[:, :, 2])
-    verts = torch.stack([verts[:, :, 0], v1, v2], dim=2)
-    return verts, tri_ok
+    return _orient(vals, verts), tri_ok
 
 
-def marching_cubes(grid: TSDFGrid, weight_min: float = 1.0):
+def marching_cubes(grid: TSDFGrid, weight_min: float = 1.0,
+                   max_cubes: int | None = None, variant: str = "table"):
     """Extract the zero iso-surface as a (T, 3, 3) f32 tensor of
-    world-space triangles on the grid's device (table variant)."""
+    world-space triangles on the grid's device. ``variant``: "table"
+    (classic 256-case, about half the triangles) or "tetra" (marching
+    tetrahedra). ``max_cubes`` keeps the first active cubes in index
+    order."""
+    fns = {"table": triangulate_cubes_table, "tetra": triangulate_cubes}
+    if variant not in fns:
+        raise ValueError(f"unknown variant {variant!r}")
     idx = torch.nonzero(active_cubes(grid, weight_min).reshape(-1))[:, 0]
+    if max_cubes is not None:
+        idx = idx[:max_cubes]
     if idx.numel() == 0:
         return torch.zeros((0, 3, 3), dtype=torch.float32,
                            device=grid.sdf.device)
-    verts, tri_valid = triangulate_cubes_table(grid, idx)
+    verts, tri_valid = fns[variant](grid, idx)
     return verts.reshape(-1, 3, 3)[tri_valid.reshape(-1)]

@@ -1,11 +1,13 @@
 """Brute-force nearest neighbours in matmul form.
 
-Port of ``pairwise_sqdist`` and ``nearest_neighbor`` from
-``reconplan_tpu.ops.nn``. Distances take the mean-centred matmul identity
-|x|^2 + |y|^2 - 2 x.y in full f32 (TF32 is off, see the package
-``__init__``); the winner of each row is then recomputed exactly by
-direct subtraction. Queries go in padded row chunks as in the JAX
-function, which bounds the distance tile at ``row_chunk x N``.
+Port of ``pairwise_sqdist``, ``se3_pairwise``, ``knn``,
+``nearest_neighbor`` and ``se3_knn`` from ``reconplan_tpu.ops.nn``.
+Distances take the mean-centred matmul identity |x|^2 + |y|^2 - 2 x.y in
+full f32 (TF32 is off, see the package ``__init__``); the winners of each
+row are then recomputed exactly by direct subtraction (for k-NN: a
+candidate superset by the matmul metric, re-ranked exactly). Queries go
+in padded row chunks as in the JAX functions, which bounds the distance
+tile at ``row_chunk x N``.
 """
 
 from __future__ import annotations
@@ -44,3 +46,70 @@ def nearest_neighbor(queries, points, valid=None, row_chunk=2048):
         dists.append(torch.linalg.norm(q_chunk - points[idx], dim=-1))
         idxs.append(idx)
     return torch.cat(dists)[:Q], torch.cat(idxs)[:Q]
+
+
+def se3_pairwise(points1, points2, position_weight=1.0, rotation_weight=0.3):
+    """SE3 distance matrix (N, 7) x (M, 7) -> (N, M):
+    ``w_p * ||p1 - p2|| + w_r * (1 - |q1.q2|)``, the workspace metric of
+    the GRR stack; position-only (D = 3) inputs give the position term."""
+    d_pos = torch.sqrt(pairwise_sqdist(points1[:, :3], points2[:, :3]))
+    if points1.shape[-1] <= 3 or points2.shape[-1] <= 3:
+        return d_pos
+    qdot = torch.matmul(points1[:, 3:7], points2[:, 3:7].T)
+    return position_weight * d_pos + rotation_weight * (1.0 - qdot.abs())
+
+
+def _smallest(d, n):
+    """Column indices of the ``n`` smallest entries of each row of ``d``,
+    ascending, equal values in index order (``lax.top_k``'s order)."""
+    idx = torch.topk(d, n, dim=1, largest=False).indices.sort(dim=1).values
+    order = torch.sort(torch.gather(d, 1, idx), dim=1, stable=True).indices
+    return torch.gather(idx, 1, order)
+
+
+def _knn_chunked(queries, points, k, valid, row_chunk, metric, exact):
+    """k-NN in padded row chunks: a candidate superset of ``4k + 16`` by
+    the matmul ``metric``, re-ranked by the ``exact`` one (direct
+    subtraction), so the matmul identity's absolute error cannot reorder
+    the winners."""
+    Q = queries.shape[0]
+    pad = (-Q) % row_chunk
+    q_padded = torch.nn.functional.pad(queries, (0, 0, 0, pad))
+    n_cand = min(max(4 * k + 16, k), points.shape[0])
+    dists, idxs = [], []
+    for q_chunk in q_padded.split(row_chunk):
+        d = metric(q_chunk, points)
+        if valid is not None:
+            d = torch.where(valid[None, :], d, float("inf"))
+        cand = _smallest(d, n_cand)
+        d_exact = exact(q_chunk[:, None, :], points[cand])
+        if valid is not None:
+            d_exact = torch.where(valid[cand], d_exact, float("inf"))
+        pos = _smallest(d_exact, k)
+        dists.append(torch.gather(d_exact, 1, pos))
+        idxs.append(torch.gather(cand, 1, pos))
+    return torch.cat(dists)[:Q], torch.cat(idxs)[:Q]
+
+
+def knn(queries, points, k, valid=None, row_chunk=1024):
+    """k nearest neighbours by euclidean distance: (dists (Q, k), idx
+    (Q, k)) sorted ascending. ``valid`` (N,) bool masks points out."""
+    return _knn_chunked(
+        queries, points, k, valid, row_chunk, pairwise_sqdist,
+        lambda q, sel: torch.linalg.norm(q - sel, dim=-1))
+
+
+def se3_knn(queries, points, k, valid=None, row_chunk=512):
+    """k nearest neighbours under the SE3 workspace metric
+    (:func:`se3_pairwise`) of (Q, 7) / (N, 7) [pos, quat] points;
+    position-only (D = 3) also works."""
+
+    def exact(q, sel):
+        d_pos = torch.linalg.norm(q[..., :3] - sel[..., :3], dim=-1)
+        if points.shape[-1] <= 3:
+            return d_pos
+        qdot = (q[..., 3:7] * sel[..., 3:7]).sum(dim=-1).abs()
+        return d_pos + 0.3 * (1.0 - qdot)
+
+    return _knn_chunked(queries, points, k, valid, row_chunk, se3_pairwise,
+                        exact)

@@ -1,10 +1,10 @@
 """Dense TSDF volumetric fusion (KinectFusion-style), voxel-centric gather.
 
 Port of ``reconplan_tpu.ops.tsdf``: ``TSDFGrid``, ``make_grid``,
-``integrate_frames`` and ``extract_surface_points``. It keeps the JAX
-engine's per-frame update order and its z-chunking (chunks of ~16M voxels
-bound the temporaries at 512^3), so the same inputs give the same floats
-op for op. It is the CPU oracle of the brick path and of its color
+``integrate_frames``, ``extract_surface_points`` and ``raycast_depth``.
+It keeps the JAX engine's per-frame update order and its z-chunking
+(chunks of ~16M voxels bound the temporaries at 512^3), so the same
+inputs give the same floats op for op. It is the CPU oracle of the brick path and of its color
 semantics, and runs on either device.
 """
 
@@ -229,3 +229,59 @@ def extract_surface_points(grid: TSDFGrid, weight_min: float = 1.0):
     band = grid.voxel_size / grid.trunc
     mask = (grid.sdf.abs() < band) & (grid.weight >= weight_min)
     return world.reshape(-1, 3), mask.reshape(-1)
+
+
+def raycast_depth(grid: TSDFGrid, T_cam_to_world, fx, fy, cx, cy,
+                  height: int, width: int, near: float = 0.1,
+                  far: float = 3.0, n_steps: int = 192):
+    """Render an (height, width) depth map in meters (0 = no hit) from the
+    TSDF by fixed-step ray marching with sign-change interpolation (the
+    KinectFusion surface prediction step).
+
+    The arithmetic is the JAX function's, in f32: ray directions as
+    explicit three-term sums (not a matmul, whose summation order is the
+    BLAS's), the march parameter ``near + i * step`` rounded in f32, the
+    nearest-voxel sample, and the first crossing from + to - interpolated
+    linearly. Camera z of the ray directions is 1, so ``t`` is the depth.
+    """
+    dev = grid.sdf.device
+    f32 = np.float32
+    T = torch.as_tensor(np.asarray(T_cam_to_world, np.float32), device=dev)
+    u = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
+    v = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
+    dc = (((u - float(f32(cx))) / scalar_tensor(f32(fx), dev)).expand(
+              height, width),
+          ((v - float(f32(cy))) / scalar_tensor(f32(fy), dev)).expand(
+              height, width),
+          torch.ones((height, width), dtype=torch.float32, device=dev))
+    R, eye = T[:3, :3], T[:3, 3]
+    dirs = [dc[0] * R[k, 0] + dc[1] * R[k, 1] + dc[2] * R[k, 2]
+            for k in range(3)]
+    D, H, W = grid.sdf.shape
+    inv_vox = 1.0 / grid.voxel_size
+    sdf_flat, w_flat = grid.sdf.reshape(-1), grid.weight.reshape(-1)
+
+    def sample_sdf(t):
+        g = [(eye[k] + dirs[k] * t - grid.origin[k]) * inv_vox
+             for k in range(3)]
+        inside = torch.ones_like(g[0], dtype=torch.bool)
+        idx = []
+        for gk, n in zip(g, (W, H, D)):
+            inside &= (gk >= 0) & (gk <= n - 1)
+            idx.append(torch.round(gk).to(torch.int32).clamp(0, n - 1))
+        flat = ((idx[2] * H + idx[1]) * W + idx[0]).long()
+        s = sdf_flat[flat]
+        return torch.where(inside & (w_flat[flat] > 0), s, 1.0)
+
+    step = f32((far - near) / n_steps)
+    t_hit = torch.full((height, width), -1.0, device=dev)
+    prev_s = torch.ones((height, width), device=dev)
+    for i in range(n_steps):
+        t = f32(near) + f32(i) * step  # f32, as the JAX loop's near + i * step
+        s = sample_sdf(float(t))
+        crossed = (prev_s > 0) & (s <= 0) & (t_hit < 0)
+        frac = prev_s / torch.clamp(prev_s - s, min=1e-9)
+        t_cross = float(t - step) + frac * float(step)
+        t_hit = torch.where(crossed, t_cross, t_hit)
+        prev_s = s
+    return torch.where(t_hit > 0, t_hit, 0.0)

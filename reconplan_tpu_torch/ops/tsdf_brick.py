@@ -4,16 +4,19 @@ Port of ``reconplan_tpu.ops.tsdf_brick``: the ``BrickGrid`` layout, the
 active-brick mask pipeline (depth-occupancy mip -> K2 per-frame bits ->
 exact centre-sample refine -> stable-argsort compaction) and the chunk
 loop of ``integrate_frames_bricked_device``, which hands the compacted
-bricks to K1. The two kernels live in ``ops/kernels``: CUDA C++ for CUDA
-tensors, their plain PyTorch versions for CPU tensors.
+bricks to K1; and the host-compacted path ``integrate_frames_bricked``
+(centre-sample mask -> numpy compaction -> K3). The kernels live in
+``ops/kernels``: CUDA C++ for CUDA tensors, their plain PyTorch versions
+for CPU tensors.
 
 Memory layout: the volume lives as bricked arrays ``(NB + 1, 8, 128)``
 (one row per 8x8x16-voxel brick: sublane = local z, lane = local y*16 +
 x; the final row is a scratch brick that absorbs padding). Dense
 (D, H, W) views are produced on demand for marching cubes.
 
-Nothing in the chunk loop reads a device value on the host: the live
-count of each chunk stays on the device and K1 reads it there.
+Nothing in the device path's chunk loop reads a device value on the host:
+the live count of each chunk stays on the device and K1 reads it there.
+The host-compacted path reads each chunk's mask on the host by design.
 """
 
 from __future__ import annotations
@@ -31,6 +34,9 @@ from reconplan_tpu_torch.ops.kernels.active_mask import (
     to_int32_bits,
 )
 from reconplan_tpu_torch.ops.kernels.brick_integrate import brick_integrate
+from reconplan_tpu_torch.ops.kernels.brick_integrate_fixed import (
+    brick_integrate_fixed,
+)
 from reconplan_tpu_torch.utils.device import scalar_tensor
 
 class BrickGrid(NamedTuple):
@@ -312,6 +318,18 @@ def _occupancy_cell(Hd, Wd):
     )
 
 
+def compact_ids(mask, size, fill):
+    """The indices of ``mask``'s set entries in order, cut or padded to
+    ``size`` with ``fill`` (``jnp.nonzero(mask, size=, fill_value=)``), as
+    (size,) i32 on the device: a stable argsort, with no host read."""
+    ids = torch.argsort(torch.where(mask, 0, 1).to(torch.int32),
+                        stable=True)[:size].to(torch.int32)
+    if ids.shape[0] < size:
+        ids = torch.cat([ids, ids.new_full((size - ids.shape[0],), fill)])
+    slot = torch.arange(size, device=mask.device)
+    return torch.where(slot < mask.sum(), ids, fill).to(torch.int32)
+
+
 def chunk_active_set(d_chunk, T_chunk, intr, origin, brick_dims, voxel_size,
                      trunc, max_active, nb_scratch, depth_scale=1000.0,
                      depth_max=3.0):
@@ -353,10 +371,7 @@ def chunk_active_set(d_chunk, T_chunk, intr, origin, brick_dims, voxel_size,
     # n_chunk (clamped) is K1's live count and never leaves the device
     n_mask = mask.sum().to(torch.int32)
     n_chunk = torch.clamp(n_mask, max=max_active).reshape(1)
-    ids = torch.argsort(torch.where(mask, 0, 1).to(torch.int32),
-                        stable=True)[:max_active].to(torch.int32)
-    slot = torch.arange(max_active, device=ids.device)
-    ids = torch.where(slot < n_chunk, ids, nb_scratch).to(torch.int32)
+    ids = compact_ids(mask, max_active, nb_scratch)
     fbits = torch.cat([bits, bits.new_zeros(1)])[
         torch.clamp(ids, max=NB).long()]
     return ids, fbits, n_chunk, n_mask
@@ -443,3 +458,89 @@ def integrate_frames_bricked_device(
         depth_scale, depth_max, max_weight, frames_per_dispatch,
     )
     return grid, n_active
+
+
+def _dilate_no_wrap(m):
+    """One-brick OR dilation along each axis of a (bd, bh, bw) numpy bool
+    array, without wrap-around (the host path's slices)."""
+    dm = m.copy()
+    dm[1:] |= m[:-1]
+    dm[:-1] |= m[1:]
+    dm[:, 1:] |= m[:, :-1]
+    dm[:, :-1] |= m[:, 1:]
+    dm[:, :, 1:] |= m[:, :, :-1]
+    dm[:, :, :-1] |= m[:, :, 1:]
+    return dm
+
+
+def host_active_ids(mask, brick_dims, nb_scratch, dilate_active=True,
+                    pad_multiple=512):
+    """The host compaction of :func:`integrate_frames_bricked`: the (NB,)
+    bool mask read on the host, optionally dilated one brick along each
+    axis (no wrap-around), ``np.flatnonzero``, padded to a multiple of
+    ``pad_multiple`` with ``nb_scratch``. Returns (ids i32 numpy, n)."""
+    m = mask.cpu().numpy().reshape(brick_dims)
+    if dilate_active:
+        m = _dilate_no_wrap(m)
+    ids = np.flatnonzero(m.reshape(-1)).astype(np.int32)
+    n = len(ids)
+    pad = (-n) % pad_multiple
+    return np.concatenate([ids, np.full(pad, nb_scratch, np.int32)]), n
+
+
+def integrate_frames_bricked(
+    grid: BrickGrid,
+    depths,  # (F, H, W) raw depth
+    poses_cam_to_world,  # (F, 4, 4)
+    fx, fy, cx, cy,
+    depth_scale=1000.0,
+    depth_max=3.0,
+    max_weight=64.0,
+    pad_multiple=512,
+    frames_per_dispatch=8,
+    dilate_active=True,
+):
+    """Integrate F frames into the brick grid (host-orchestrated).
+
+    Per chunk of <= ``frames_per_dispatch`` frames:
+      1. the centre-sample active-brick mask (:func:`active_brick_mask`),
+         optionally dilated one brick along each axis (no wrap-around):
+         the centre sample is conservative but can clip the band at
+         silhouettes;
+      2. host compaction of the active ids (:func:`host_active_ids`),
+         padded to a multiple of ``pad_multiple`` with the scratch row;
+      3. one K3 launch over the padded ids, every frame of the chunk.
+
+    The grid's planes are updated IN PLACE (the JAX path donates them).
+    The JAX function refuses frames smaller than its kernel's VMEM window;
+    K3 has no window, so any frame size is taken.
+    Returns (grid, n_active_total) with the count a Python int.
+    """
+    dev = grid.sdf.device
+    depths = torch.as_tensor(depths, dtype=torch.float32,
+                             device=dev).contiguous()
+    poses = torch.as_tensor(poses_cam_to_world, dtype=torch.float32,
+                            device=dev)
+    T_w2c_all = torch.linalg.inv(poses)
+    intr = tuple(float(np.float32(v)) for v in (fx, fy, cx, cy))
+    bd, bh, bw = grid.brick_dims
+    n_active_total = 0
+    for f0 in range(0, depths.shape[0], frames_per_dispatch):
+        chunk = slice(f0, f0 + frames_per_dispatch)
+        d_chunk = depths[chunk]
+        T_chunk = T_w2c_all[chunk].contiguous()
+        mask = active_brick_mask(
+            grid.brick_dims, grid.origin, grid.voxel_size, grid.trunc,
+            d_chunk, T_chunk, *intr, depth_scale, depth_max)
+        ids, n_active = host_active_ids(
+            mask, grid.brick_dims, grid.sdf.shape[0] - 1, dilate_active,
+            pad_multiple)
+        n_active_total += n_active
+        if n_active == 0:
+            continue
+        brick_integrate_fixed(
+            grid.sdf, grid.weight, torch.as_tensor(ids, device=dev), 0,
+            bd * bh * bw, T_chunk, intr, d_chunk, grid.origin,
+            grid.brick_dims, grid.voxel_size, grid.trunc, depth_scale,
+            depth_max, max_weight)
+    return grid, n_active_total

@@ -18,7 +18,14 @@ from reconplan_tpu_torch.ops.kernels import (
     active_mask,
     active_mask_reference,
     brick_integrate,
+    brick_integrate_fixed,
+    brick_integrate_fixed_reference,
     brick_integrate_reference,
+)
+from reconplan_tpu_torch.parallel import (
+    gather_brick_grid,
+    make_sharded_brick_grid,
+    sharded_integrate_frames_bricked,
 )
 
 pytestmark = pytest.mark.cuda
@@ -111,3 +118,60 @@ def test_device_path_matches_dense_engine_on_card(chunk, card):
     same = (w_b > 0) & (w_b == dense.weight)
     assert same.sum().item() > 1000 and int(n_active) > 0
     assert (sdf_b - dense.sdf)[same].abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("id_base,n_real", [(0, 256), (128, 128)])
+def test_k3_matches_plain(chunk, card, id_base, n_real):
+    """K3 on a random prior state, the whole grid and its second half as a
+    shard: sdf within 1e-6, weight identical, padding untouched."""
+    bd = (8, 8, 4)
+    mask = tb.active_brick_mask(bd, chunk["origin"], VOX, 5 * VOX,
+                                chunk["d"], chunk["T"], *chunk["intr"])
+    local = torch.nonzero(mask[id_base:id_base + n_real])[:, 0].int()
+    assert 0 < len(local) < n_real
+    ids = torch.cat([local, local.new_full((512 - len(local),), n_real)])
+    gen = torch.Generator(device=card).manual_seed(1)
+    planes = [
+        torch.rand((n_real + 1, 8, 128), generator=gen, device=card) * 2 - 1,
+        torch.randint(0, 5, (n_real + 1, 8, 128), generator=gen,
+                      device=card).float(),
+    ]
+    ref = [a.clone() for a in planes]
+    rest = (ids, id_base, n_real, chunk["T"], chunk["intr"], chunk["d"],
+            chunk["origin"], bd, VOX, 5 * VOX, 1000.0, 3.0, 64.0)
+    before = brick_integrate_fixed.launches
+    brick_integrate_fixed(*planes, *rest)
+    torch.cuda.synchronize()
+    assert brick_integrate_fixed.launches == before + 1
+    brick_integrate_fixed_reference(*ref, *rest)
+    assert (planes[0] - ref[0]).abs().max().item() <= 1e-6
+    assert torch.equal(planes[1], ref[1])
+    assert not torch.equal(planes[1], ref[1].new_zeros(ref[1].shape))
+    assert torch.equal(planes[0][-1], ref[0][-1])  # the scratch row
+
+
+def test_bricked_and_sharded_paths_launch_k3(chunk, card):
+    """The host-compacted path against the dense engine, and four shards on
+    the one card bit-identical to it (one chunk, no dilation)."""
+    K = chunk["K"]
+    before = brick_integrate_fixed.launches
+    g = tb.make_brick_grid(DIMS, ORIGIN, VOX, device=card)
+    g, n_active = tb.integrate_frames_bricked(
+        g, chunk["depths"], chunk["poses"], *K, dilate_active=False)
+    assert brick_integrate_fixed.launches == before + 1 and n_active > 0
+    dense = ttsdf.integrate_frames(
+        ttsdf.make_grid(DIMS, ORIGIN, VOX, device=card), chunk["depths"],
+        chunk["poses"], *K)
+    sdf_b, w_b = tb.to_dense(g)
+    seen = w_b > 0
+    assert torch.equal(w_b[seen], dense.weight[seen])
+    assert (sdf_b - dense.sdf)[seen].abs().max().item() <= 1e-6
+    g_nbl = make_sharded_brick_grid(DIMS, ORIGIN, VOX, devices=[card] * 4)
+    g_nbl, n_sh = sharded_integrate_frames_bricked(
+        g_nbl, chunk["depths"], chunk["poses"], *K,
+        max_active_per_device=64)
+    assert brick_integrate_fixed.launches == before + 5
+    assert int(n_sh) == n_active
+    gathered = gather_brick_grid(g_nbl)
+    assert torch.equal(gathered.sdf, g.sdf)
+    assert torch.equal(gathered.weight, g.weight)

@@ -104,3 +104,44 @@ def test_winding_outward():
     c = tris.mean(axis=1)
     nrm = np.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0])
     assert (np.sum(nrm * c, -1) > 0).all()
+
+
+def test_tetra_tables_identical_to_jax():
+    for name in ("_TETS", "_TET_EDGES", "_TET_TRIS"):
+        np.testing.assert_array_equal(getattr(tmc, name), getattr(jmc, name))
+    assert tmc.MAX_TRIS_PER_CUBE == jmc.MAX_TRIS_PER_CUBE == 12
+
+
+@pytest.mark.parametrize("n", [32, 48])
+def test_tetra_same_triangles_as_jax(n):
+    """The twin of ``test_table_vs_tetra_accuracy_and_count``: the port's
+    tetra variant against JAX's, triangle for triangle, and the table
+    variant's two-fold saving at equal accuracy."""
+    sdf, vox = _sphere_sdf(n)
+    gj, gt = _both_grids(sdf, np.ones_like(sdf), vox)
+    with jax_eager():
+        tj = jmc.marching_cubes(gj, variant="tetra")
+    tt = tmc.marching_cubes(gt, variant="tetra").numpy()
+    assert len(tt) == len(tj) > 100
+    np.testing.assert_allclose(_sorted_tris(tt), _sorted_tris(tj),
+                               rtol=0, atol=1e-6)
+    t_table = tmc.marching_cubes(gt).numpy()
+    assert len(t_table) * 2 <= len(tt)
+    for tris in (t_table, tt):
+        r = np.linalg.norm(tris.reshape(-1, 3), axis=-1)
+        assert np.abs(r - 0.1).max() < 0.35 * vox
+
+
+@pytest.mark.parametrize("variant", ["table", "tetra"])
+def test_max_cubes_matches_jax(variant):
+    sdf, vox = _sphere_sdf(32)
+    gj, gt = _both_grids(sdf, np.ones_like(sdf), vox)
+    with jax_eager():
+        tj = jmc.marching_cubes(gj, max_cubes=300, variant=variant)
+    tt = tmc.marching_cubes(gt, max_cubes=300, variant=variant).numpy()
+    assert 0 < len(tt) == len(tj) < len(tmc.marching_cubes(gt,
+                                                           variant=variant))
+    np.testing.assert_allclose(_sorted_tris(tt), _sorted_tris(tj),
+                               rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="variant"):
+        tmc.marching_cubes(gt, variant="dual")

@@ -1,9 +1,11 @@
 """The port's splat renderer against ``reconplan_tpu.io.render``.
 
-50k banana splats at 120x160. Depth must be identical on >= 99.9% of
-pixels: a pixel can differ where the rounding of a projection flips
-between the two packages' (N, 3) x (3, 3) matmuls. Color within 1e-5
-elsewhere (scatter-add order).
+50k banana splats at 120x160. The two packages' (N, 3) x (3, 3)
+projections round one f32 ulp apart on a share of the splats that depends
+on the host CPU's matmul code; measured, depth was identical on 0.99833 to
+0.99896 of the pixels of these views. So the hit sets must be equal and
+every pixel's depth within one ulp of it; color within 1e-5 on the pixels
+whose depth is identical (scatter-add order).
 """
 
 import os
@@ -52,7 +54,8 @@ def test_splat_depth_and_color_match_jax(cameras, eye):
     same = dt == dj
     print(f"depth identical on {same.mean():.5f} of pixels, max diff "
           f"{np.abs(dt - dj).max():.3g} mm")
-    assert same.mean() >= 0.999
+    np.testing.assert_array_equal(dt > 0, hit)
+    assert (np.abs(dt - dj) <= np.spacing(np.maximum(dt, dj))).all()
     # color through the renderer's float output (the u8 frames truncate)
     T_w2c = np.linalg.inv(Tj).astype(np.float32)
     cpu = jax.local_devices(backend="cpu")[0]
@@ -72,3 +75,23 @@ def test_splat_points_and_colors_identical(cameras):
     np.testing.assert_array_equal(ct._colors.numpy(), cj._colors)
     assert ct._points.device == torch.device("cpu")
     jnp.asarray(0)  # JAX stays importable beside the port
+
+
+def test_checker_floor_and_mesh_options_match_jax():
+    """``add_checker_floor`` and ``add_mesh``'s ``translate`` / ``color``
+    build the same splats as the JAX camera."""
+    kw = dict(width=W, height=H, fx=F, fy=F, cx=W / 2, cy=H / 2,
+              samples_per_mesh=2000, seed=1)
+    cj = jrender.SplatCamera(**kw).add_mesh_file(
+        BANANA, translate=(0.0, 0.0, 0.02), color=(0.2, 0.4, 0.6))
+    ct = trender.SplatCamera(device="cpu", **kw).add_mesh_file(
+        BANANA, translate=(0.0, 0.0, 0.02), color=(0.2, 0.4, 0.6))
+    cj.add_checker_floor(size=0.4, tiles=4, samples_per_tile=500)
+    ct.add_checker_floor(size=0.4, tiles=4, samples_per_tile=500)
+    np.testing.assert_array_equal(ct._points.numpy(), cj._points)
+    np.testing.assert_array_equal(ct._colors.numpy(), cj._colors)
+    assert len(cj._points) == 2000 + 16 * 500
+    dj, colj, _ = cj.take_picture((0.3, 0.1, 0.35), (0.0, 0.0, 0.0))
+    dt, colt, _ = ct.take_picture((0.3, 0.1, 0.35), (0.0, 0.0, 0.0))
+    np.testing.assert_array_equal(dt.numpy() > 0, dj > 0)
+    assert (dj > 0).mean() > 0.1  # the sparse floor splats cover pixels

@@ -23,7 +23,12 @@ from reconplan_tpu.recon import metrics as jmetrics
 from reconplan_tpu_torch.io.frames import FrameSet
 from reconplan_tpu_torch.io.meshio import load_mesh
 from reconplan_tpu_torch.io.render import SplatCamera
-from reconplan_tpu_torch.ops.kernels import active_mask, brick_integrate, build
+from reconplan_tpu_torch.ops.kernels import (
+    active_mask,
+    brick_integrate,
+    brick_integrate_fixed,
+    build,
+)
 from reconplan_tpu_torch.recon import fusion as tfusion
 from reconplan_tpu_torch.recon import metrics as tmetrics
 
@@ -100,6 +105,7 @@ def test_slice_outputs_are_sane(port_result):
 def test_launch_counters_stay_zero_on_cpu(port_result):
     assert port_result[3] == (0, 0)
     assert brick_integrate.launches == 0 and active_mask.launches == 0
+    assert brick_integrate_fixed.launches == 0
 
 
 def test_port_runs_with_jax_blocked():
@@ -125,6 +131,17 @@ r = tris.reshape(-1, 3).norm(dim=-1)
 assert (r - 0.12).abs().mean() < 0.01, (r - 0.12).abs().mean()
 ch, _, _ = chamfer_distance(tris.reshape(-1, 3), tris.reshape(-1, 3))
 assert float(ch) == 0.0
+from reconplan_tpu_torch.ops import tsdf_brick as tb
+from reconplan_tpu_torch.parallel import (
+    gather_brick_grid, make_sharded_brick_grid,
+    sharded_integrate_frames_bricked)
+g, n = tb.integrate_frames_bricked(
+    tb.make_brick_grid((32,) * 3, (-0.16,) * 3, 0.32 / 31), d, p, *K,
+    dilate_active=False)
+s, _ = sharded_integrate_frames_bricked(
+    make_sharded_brick_grid((32,) * 3, (-0.16,) * 3, 0.32 / 31,
+                            devices=["cpu"] * 2), d, p, *K)
+assert n > 0 and torch.equal(gather_brick_grid(s).sdf, g.sdf)
 assert not [m for m in sys.modules if m.startswith("jax")
             and sys.modules[m] is not None]
 print("ok", len(tris))
@@ -146,6 +163,37 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build()
     assert not list(tmp_path.iterdir())
+
+
+def test_build_runs_one_nvcc_per_source_then_links(monkeypatch, tmp_path):
+    """Each source compiles in its own process, all started together, and
+    one more process links the objects; a failing compile raises with its
+    output after every process has ended."""
+    calls = tmp_path / "calls.txt"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        f'echo "$*" >> {calls}\n'
+        'case "$*" in *bad.cu*) echo "bad.cu: error" >&2; exit 2;; esac\n'
+        'while [ "$1" != "-o" ]; do shift; done; touch "$2"\n')
+    fake.chmod(0o755)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu", "c.cu"):
+        (csrc / name).write_text("// " + name)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "find_nvcc", lambda: str(fake))
+    lib = build.build()
+    lines = calls.read_text().splitlines()
+    assert lib.is_file() and len(lines) == 4
+    assert all(" -c " in line for line in lines[:3])
+    assert "-fmad=false" in lines[3] and "-shared" in lines[3]
+    assert build.build() == lib  # up to date: nothing runs
+    assert len(calls.read_text().splitlines()) == 4
+    (csrc / "bad.cu").write_text("// bad")
+    with pytest.raises(RuntimeError, match="bad.cu: error"):
+        build.build()
 
 
 def test_fuse_frameset_autofits_the_grid(orbit):
