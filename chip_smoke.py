@@ -23,13 +23,26 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
   9. banana   points_to_mesh_distance of the banana mesh's vertices to the
               GT triangles (mean <= 1 mm), and raycast_depth of the fused
               banana grid against the splat depth of an orbit view
+ 10. ablate   the six ablation arms of K1 (K4/K5) against their plain
+              versions at phase 3's bench chunk, `full` and `smem_window`
+              also against K1 bit for bit, with CUDA-event times
+ 11. profile  reconplan_tpu_torch.benchmarks.profile_brick end to end: the
+              bench scene's stage split and the ablation arms; its JSON
+              line is printed on a line of its own
+ 12. probe    reconplan_tpu_torch.benchmarks.probe_sublane_ops: the four
+              microprobe arms (K6) at s0 in {0, 5}, bit-identical to their
+              plain versions, with times
 Launch counters are zeroed just before phase 5 and read after phase 6 (K1
-and K2), and zeroed before and read after each of phases 7 and 8 (K3): each
-kernel must have been launched by its paths. The line before the last is a
-JSON summary of the kernels; the last line is the run's JSON status.
+and K2), zeroed before and read after each of phases 7 and 8 (K3), 11
+(every ablation arm) and 12 (every probe arm): each kernel must have been
+launched by its paths. The line before the last is a JSON summary of the
+kernels (the ablation and probe entries give each arm's numbers under
+"arms", and at the top those of K5's `full`, K4's `smem_window` and the
+probe's `baseline`); the last line is the run's JSON status.
 """
 
 import json
+import math
 import os
 import sys
 import time
@@ -59,15 +72,19 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     from reconplan_tpu_torch.bench import (
         MAX_ACTIVE, N, ORIGIN, VOXEL, make_frames)
+    from reconplan_tpu_torch.benchmarks import (
+        probe_sublane_ops, profile_brick)
     from reconplan_tpu_torch.io.meshio import load_mesh
     from reconplan_tpu_torch.io.render import SplatCamera
     from reconplan_tpu_torch.io.frames import FrameSet
     from reconplan_tpu_torch.ops import tsdf as tsdf_ops
     from reconplan_tpu_torch.ops import tsdf_brick as tb
     from reconplan_tpu_torch.ops.kernels import (
-        active_mask, active_mask_reference, brick_integrate,
-        brick_integrate_fixed, brick_integrate_fixed_reference,
-        brick_integrate_reference, build)
+        active_mask, active_mask_reference, brick_ablate,
+        brick_ablate_reference, brick_integrate, brick_integrate_fixed,
+        brick_integrate_fixed_reference, brick_integrate_reference, build,
+        gather_probe)
+    from reconplan_tpu_torch.ops.kernels.brick_ablate import ARMS
     from reconplan_tpu_torch.parallel import (
         gather_brick_grid, make_sharded_brick_grid,
         sharded_integrate_frames_bricked)
@@ -356,10 +373,100 @@ def main():
           f"raycast_depth {cam.width}x{cam.height}: hit share "
           f"{hit_share:.4f}, median |ray - splat| {ray_med * 1e3:.4f} mm on "
           f"{both.sum().item()} pixels")
+
+    # --- 10. the ablation arms (K4/K5) at phase 3's bench chunk ----------
+    grid = tb.make_brick_grid((N,) * 3, ORIGIN, VOXEL, device=dev)
+    tb.integrate_frames_bricked_device(grid, d_all[8:16], p_all[8:16], *K)
+    ids, fbits, n, _ = tb.chunk_active_set(
+        d8, T8, intr, grid.origin, bd, VOXEL, trunc, MAX_ACTIVE, NB)
+    rest = (ids, fbits, n, T8, intr, d8, grid.origin, bd, VOXEL, trunc,
+            1000.0, 3.0, 64.0)
+    k1_planes = (grid.sdf.clone(), grid.weight.clone())
+    brick_integrate(*k1_planes, None, *rest[:6], None, *rest[6:])
+    ablate = {}
+    for arm in ARMS:
+        planes = (grid.sdf.clone(), grid.weight.clone())
+        ref = tuple(a.clone() for a in planes)
+        brick_ablate(arm, *planes, *rest)
+        brick_ablate_reference(arm, *ref, *rest)
+        torch.cuda.synchronize()
+        err = (planes[0] - ref[0]).abs().max().item()
+        if err > 1e-6 or not torch.equal(planes[1], ref[1]):
+            raise AssertionError(f"ablation arm {arm}: sdf err {err} or "
+                                 "weight differs from its plain version")
+        as_k1 = torch.equal(planes[0], k1_planes[0]) and torch.equal(
+            planes[1], k1_planes[1])
+        if arm in ("full", "smem_window") and not as_k1:
+            raise AssertionError(f"ablation arm {arm} differs from K1")
+        ms = events_ms(lambda a=arm, p=planes: brick_ablate(a, *p, *rest))
+        plain_ms = events_ms(
+            lambda a=arm, p=ref: brick_ablate_reference(a, *p, *rest), reps=3)
+        ablate[arm] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        phase("ablate", f"{arm}: sdf max err {err:.3g}, weight identical"
+              + (", bit-identical to K1" if as_k1 else "")
+              + f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        del planes, ref
+    phase("ablate", f"{n.item()} live bricks of the 8-frame bench chunk | "
+          f"{card}")
+    del grid, k1_planes
+
+    # --- 11. the stage split and ablation tool, end to end ----------------
+    for arm in ARMS:
+        brick_ablate.launches[arm] = 0
+    t0 = time.perf_counter()
+    prof = profile_brick.run(reps=2, inner=2, log=sys.stdout)
+    dt = time.perf_counter() - t0
+    print(json.dumps(prof), flush=True)
+    ablate_launches = dict(brick_ablate.launches)
+    bad = [k for k, v in prof.items() if k.endswith("_ms") and v is not None
+           and not (math.isfinite(v) and v > 0)]
+    if bad:
+        raise AssertionError(f"profile_brick stage times not positive: {bad}")
+    phase("profile", f"{dt:.1f} s | full pipeline "
+          f"{prof['full_pipeline_ms']:.3f} ms/batch (device "
+          f"{prof['full_pipeline_device_ms']:.3f}; after the profiler "
+          f"{prof['full_pipeline_after_profiler_ms']:.3f}), mask pipeline "
+          f"{prof['mask_pipeline_ms']:.3f} (device "
+          f"{prof['mask_pipeline_device_ms']:.3f}), K1 alone "
+          f"{prof['kernel_production_ms']:.4f} | ablation launches "
+          f"{json.dumps(ablate_launches)}")
+
+    # --- 12. the microprobe (K6) -------------------------------------------
+    for arm in gather_probe.launches:
+        gather_probe.launches[arm] = 0
+    probe = probe_sublane_ops.run()
+    probe_launches = dict(gather_probe.launches)
+    phase("probe", "bit-identical to the plain versions at s0 in "
+          f"{probe['s0']} | kernel ms "
+          + ", ".join(f"{a} {v:.4f}" for a, v in probe["ms"].items())
+          + " | plain ms "
+          + ", ".join(f"{a} {v:.4f}" for a, v in probe["plain_ms"].items()))
+
+    for arm, count in {**ablate_launches, **probe_launches}.items():
+        if count == 0:
+            raise AssertionError(f"its tool never launched arm {arm}")
+    launches["brick_ablate"] = sum(ablate_launches.values())
+    launches["gather_probe"] = sum(probe_launches.values())
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"main path never launched {name}")
     phase("launches", json.dumps(launches))
+
+    # K4 and K5 share one templated kernel; each arm goes under one entry
+    # only (K4's `full2` is K5's `full`), and the first arm gives the
+    # entry's own numbers
+    def ablate_entry(name, replaces, arms):
+        return {
+            "name": name, "route": "cuda",
+            "source": "reconplan_tpu_torch/csrc/brick_ablate.cu",
+            "replaces": replaces,
+            "launches": sum(ablate_launches[a] for a in arms),
+            "max_abs_err": max(ablate[a]["max_abs_err"] for a in arms),
+            "ms": ablate[arms[0]]["ms"],
+            "plain_ms": ablate[arms[0]]["plain_ms"],
+            "arms": {a: {"launches": ablate_launches[a], **ablate[a]}
+                     for a in arms},
+        }
 
     print(json.dumps({"kernels": [
         {"name": "active_mask", "route": "cuda",
@@ -377,6 +484,21 @@ def main():
          "replaces": "reconplan_tpu/ops/tsdf_brick.py:503",
          "launches": launches["brick_integrate_fixed"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms},
+        ablate_entry("brick_ablate_k5", "benchmarks/profile_brick.py:75",
+                     ("full", "no_fbits", "no_gather", "one_row", "rw_only")),
+        ablate_entry("brick_ablate_k4", "benchmarks/profile_brick.py:320",
+                     ("smem_window",)),
+        {"name": "gather_probe", "route": "cuda",
+         "source": "reconplan_tpu_torch/csrc/gather_probe.cu",
+         "replaces": "benchmarks/probe_sublane_ops.py:35",
+         "launches": launches["gather_probe"],
+         "max_abs_err": max(probe["max_abs_err"].values()),
+         "ms": probe["ms"]["baseline"],
+         "plain_ms": probe["plain_ms"]["baseline"],
+         "arms": {a: {"launches": probe_launches[a], "ms": probe["ms"][a],
+                      "plain_ms": probe["plain_ms"][a],
+                      "max_abs_err": probe["max_abs_err"][a]}
+                  for a in probe["ms"]}},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,12 @@
+"""On-card measurement tools of the port, beside ``reconplan_tpu_torch.bench``.
+
+* :mod:`~reconplan_tpu_torch.benchmarks.profile_brick`: the bench scene's
+  time split by stage, and the ablation arms of K1
+  (``python -m reconplan_tpu_torch.benchmarks.profile_brick``).
+* :mod:`~reconplan_tpu_torch.benchmarks.probe_sublane_ops`: the
+  depth-sampling microprobe
+  (``python -m reconplan_tpu_torch.benchmarks.probe_sublane_ops``).
+
+Each keeps the name of its counterpart in the repo's ``benchmarks/``
+folder, needs a CUDA card and exits nonzero without one.
+"""

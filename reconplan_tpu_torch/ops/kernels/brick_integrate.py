@@ -49,13 +49,11 @@ def _voxel_world(ids, brick_dims, origin, voxel_size):
             origin[2] + (bz * 8 + lz) * voxel)
 
 
-def _observe(pose, wx, wy, wz, depth, intr, depth_scale, depth_max, trunc):
-    """One frame's observation of the voxels, as the kernels make it:
-    project through the (16,) row-major w2c ``pose``, round to a pixel,
-    sample ``depth`` (Hd, Wd). ``depth_scale`` and ``trunc`` are 0-d f32
-    tensors (divisors). Returns (w_obs 0/1 f32, tsdf_obs, pixel index)."""
+def _project_voxels(pose, wx, wy, wz, intr, Hd, Wd):
+    """Project the voxels through the (16,) row-major w2c ``pose`` and
+    round to a pixel, as the kernels do. Returns (camera z, ui, vi i32,
+    in-image mask, clamped pixel index)."""
     fx, fy, cx, cy = intr
-    Hd, Wd = depth.shape
     r = pose
     x = r[0] * wx + r[1] * wy + r[2] * wz + r[3]
     y = r[4] * wx + r[5] * wy + r[6] * wz + r[7]
@@ -65,10 +63,27 @@ def _observe(pose, wx, wy, wz, depth, intr, depth_scale, depth_max, trunc):
     vi = torch.round(y / zs * fy + cy).to(torch.int32)
     in_img = (ui >= 0) & (ui < Wd) & (vi >= 0) & (vi < Hd) & (z > 1e-4)
     pix = (vi.clamp(0, Hd - 1) * Wd + ui.clamp(0, Wd - 1)).long()
-    d = depth.reshape(-1)[pix] / depth_scale
+    return z, ui, vi, in_img, pix
+
+
+def _depth_obs(d, z, in_img, depth_scale, depth_max, trunc):
+    """The observation from raw depth samples ``d``: (w_obs 0/1 f32,
+    tsdf_obs). ``depth_scale`` and ``trunc`` are 0-d f32 tensors."""
+    d = d / depth_scale
     sdf_obs = d - z
     ok = in_img & (d > 0.0) & (d < depth_max) & (sdf_obs > -trunc)
-    return ok.float(), torch.clamp(sdf_obs / trunc, -1.0, 1.0), pix
+    return ok.float(), torch.clamp(sdf_obs / trunc, -1.0, 1.0)
+
+
+def _observe(pose, wx, wy, wz, depth, intr, depth_scale, depth_max, trunc):
+    """One frame's observation of the voxels, as the kernels make it:
+    project, round to a pixel, sample ``depth`` (Hd, Wd). Returns (w_obs
+    0/1 f32, tsdf_obs, pixel index)."""
+    z, _, _, in_img, pix = _project_voxels(pose, wx, wy, wz, intr,
+                                           *depth.shape)
+    w_obs, tsdf_obs = _depth_obs(depth.reshape(-1)[pix], z, in_img,
+                                 depth_scale, depth_max, trunc)
+    return w_obs, tsdf_obs, pix
 
 
 def brick_integrate_reference(sdf_b, weight_b, rgb_b, ids, fbits, n_live,

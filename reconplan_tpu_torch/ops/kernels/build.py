@@ -45,6 +45,10 @@ _SIGNATURES = {
     "brick_integrate_fixed_launch": (
         [_P] * 3 + [_I] * 3 + [_P] * 3 + [_I] * 5 + [_F] * 9 + [_P]
     ),
+    "brick_ablate_launch": (
+        [_I] + [_P] * 5 + [_I] + [_P] * 3 + [_I] * 5 + [_F] * 9 + [_P]
+    ),
+    "gather_probe_launch": [_I] + [_P] * 2 + [_I] * 5 + [_P],
 }
 
 

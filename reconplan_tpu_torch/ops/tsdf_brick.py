@@ -342,10 +342,7 @@ def chunk_active_set(d_chunk, T_chunk, intr, origin, brick_dims, voxel_size,
     count), M = min(max_active, NB). Nothing is read on the host.
     """
     bd, bh, bw = brick_dims
-    NB = bd * bh * bw
-    max_active = min(max_active, NB)
     F_chunk, Hd, Wd = d_chunk.shape
-    all_bits = (1 << F_chunk) - 1
     occ_cell = _occupancy_cell(Hd, Wd)
     if occ_cell is not None:
         occ0, occ1, binp = _build_depth_occupancy(
@@ -354,19 +351,37 @@ def chunk_active_set(d_chunk, T_chunk, intr, origin, brick_dims, voxel_size,
         bits = active_mask(
             brick_dims, origin, voxel_size, trunc, occ0, occ1, binp,
             T_chunk, *intr, mip_cell=occ_cell)
-        # refine: exact per-frame centre test on the candidates + one
-        # brick of dilation, intersected with the occupancy superset
-        bits = bits & _exact_frame_bits_dilated(
-            bits, d_chunk, T_chunk, origin, voxel_size, trunc, intr,
-            brick_dims, min(max_active, 4096), depth_scale, depth_max)
-        mask = bits != 0
+        bits = refine_frame_bits(bits, d_chunk, T_chunk, intr, origin,
+                                 brick_dims, voxel_size, trunc, max_active,
+                                 depth_scale, depth_max)
     else:
         # the centre sample can clip the band at silhouettes: dilate it
         # one brick, and integrate every frame (no per-frame skip)
         mask = _dilate(active_brick_mask(
             brick_dims, origin, voxel_size, trunc, d_chunk, T_chunk,
             *intr, depth_scale, depth_max).reshape(bd, bh, bw)).reshape(-1)
-        bits = torch.where(mask, all_bits, 0).to(torch.int32)
+        bits = torch.where(mask, (1 << F_chunk) - 1, 0).to(torch.int32)
+    return compact_active(bits, max_active, nb_scratch)
+
+
+def refine_frame_bits(bits, d_chunk, T_chunk, intr, origin, brick_dims,
+                      voxel_size, trunc, max_active, depth_scale=1000.0,
+                      depth_max=3.0):
+    """The refine stage of :func:`chunk_active_set`: the exact per-frame
+    centre test on K2's candidate ``bits`` (at most min(max_active, 4096)
+    of them) + one brick of dilation, intersected with ``bits``."""
+    return bits & _exact_frame_bits_dilated(
+        bits, d_chunk, T_chunk, origin, voxel_size, trunc, intr,
+        brick_dims, min(max_active, 4096), depth_scale, depth_max)
+
+
+def compact_active(bits, max_active, nb_scratch):
+    """The last stage of :func:`chunk_active_set`: the per-brick frame
+    ``bits`` (NB,) i32 -> (ids, fbits, n_chunk, n_mask), as returned
+    there."""
+    NB = bits.shape[0]
+    max_active = min(max_active, NB)
+    mask = bits != 0
     # the unclamped count keeps a cap overshoot visible in n_active;
     # n_chunk (clamped) is K1's live count and never leaves the device
     n_mask = mask.sum().to(torch.int32)

@@ -17,11 +17,18 @@ from reconplan_tpu_torch.ops import tsdf_brick as tb
 from reconplan_tpu_torch.ops.kernels import (
     active_mask,
     active_mask_reference,
+    brick_ablate,
+    brick_ablate_reference,
     brick_integrate,
     brick_integrate_fixed,
     brick_integrate_fixed_reference,
     brick_integrate_reference,
+    gather_probe,
+    gather_probe_reference,
 )
+from reconplan_tpu_torch.ops.kernels.brick_ablate import ARMS, footprint
+from reconplan_tpu_torch.ops.kernels.brick_integrate import _voxel_world
+from reconplan_tpu_torch.ops.kernels.gather_probe import ARMS as PROBE_ARMS
 from reconplan_tpu_torch.parallel import (
     gather_brick_grid,
     make_sharded_brick_grid,
@@ -175,3 +182,81 @@ def test_bricked_and_sharded_paths_launch_k3(chunk, card):
     gathered = gather_brick_grid(g_nbl)
     assert torch.equal(gathered.sdf, g.sdf)
     assert torch.equal(gathered.weight, g.weight)
+
+
+def _ablate_case(card, d, T, intr, origin, bd):
+    """A random prior state on the bricks of (NB + 1, 8, 128) planes, and
+    the chunk's real active set."""
+    NB = bd[0] * bd[1] * bd[2]
+    ids, fbits, n, _ = tb.chunk_active_set(d, T, intr, origin, bd, VOX,
+                                           5 * VOX, 8192, NB)
+    gen = torch.Generator(device=card).manual_seed(2)
+    planes = (
+        torch.rand((NB + 1, 8, 128), generator=gen, device=card) * 2 - 1,
+        torch.randint(0, 5, (NB + 1, 8, 128), generator=gen,
+                      device=card).float(),
+    )
+    rest = (ids, fbits, n, T, intr, d, origin, bd, VOX, 5 * VOX, 1000.0,
+            3.0, 64.0)
+    return planes, rest
+
+
+def _check_arm(arm, planes, rest):
+    """The arm's kernel against its plain version (sdf within 1e-6, weight
+    identical) and, for full and smem_window, against K1 bit for bit."""
+    out = [a.clone() for a in planes]
+    ref = [a.clone() for a in planes]
+    before = brick_ablate.launches[arm]
+    brick_ablate(arm, *out, *rest)
+    torch.cuda.synchronize()
+    assert brick_ablate.launches[arm] == before + 1
+    brick_ablate_reference(arm, *ref, *rest)
+    assert (out[0] - ref[0]).abs().max().item() <= 1e-6
+    assert torch.equal(out[1], ref[1])
+    if arm == "rw_only":
+        assert all(torch.equal(a, b) for a, b in zip(out, planes))
+    else:
+        assert not torch.equal(out[1], planes[1])
+    if arm in ("full", "smem_window"):
+        k1 = [a.clone() for a in planes]
+        brick_integrate(*k1, None, *rest[:6], None, *rest[6:])
+        assert torch.equal(out[0], k1[0]) and torch.equal(out[1], k1[1])
+
+
+@pytest.mark.parametrize("arm", ARMS)
+def test_ablate_arm_matches_plain(chunk, card, arm):
+    planes, rest = _ablate_case(card, chunk["d"], chunk["T"], chunk["intr"],
+                                chunk["origin"], (8, 8, 4))
+    _check_arm(arm, planes, rest)
+
+
+@pytest.mark.parametrize("arm", ["full", "smem_window", "one_row"])
+def test_ablate_tall_footprints(card, arm):
+    """640x480 frames at fx 615.67 on the 64^3 grid of 5 mm voxels: brick
+    footprints taller than the 64-row tile, so smem_window reads their
+    rest from global memory."""
+    depths, poses, K = make_frames(4)
+    d = torch.as_tensor(depths, device=card)
+    T = torch.linalg.inv(torch.as_tensor(poses, device=card)).contiguous()
+    intr = tuple(float(np.float32(v)) for v in K)
+    origin = torch.tensor(ORIGIN, dtype=torch.float32, device=card)
+    bd = (8, 8, 4)
+    planes, rest = _ablate_case(card, d, T, intr, origin, bd)
+    ids, n = rest[0], int(rest[2].item())
+    wx, wy, wz = _voxel_world(ids[:n], bd, origin, VOX)
+    _, _, vmin, vmax = footprint(T[0].reshape(16), wx, wy, wz, intr,
+                                 *d.shape[1:])
+    assert (vmax - vmin + 1 > 64).any()
+    _check_arm(arm, planes, rest)
+
+
+@pytest.mark.parametrize("s0", [0, 5])
+@pytest.mark.parametrize("arm", PROBE_ARMS)
+def test_probe_arm_matches_plain(card, arm, s0):
+    x = torch.rand((32, 256), generator=torch.Generator(device=card)
+                   .manual_seed(3), device=card)
+    before = gather_probe.launches[arm]
+    out = gather_probe(arm, x, s0)
+    torch.cuda.synchronize()
+    assert gather_probe.launches[arm] == before + 1
+    assert torch.equal(out, gather_probe_reference(arm, x, s0))
