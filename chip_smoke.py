@@ -4,13 +4,17 @@
 
 Phases (each prints a line; any failure raises and the exit code is not 0):
   1. device   require a CUDA card; print nvidia-smi's name and power limit
-  2. build    compile the CUDA kernels from reconplan_tpu_torch/csrc
+  2. build    compile the CUDA kernels from reconplan_tpu_torch/csrc; print
+              ptxas's registers, shared memory and spills of the K1 and K2
+              kernels and the occupancy query's blocks per SM of K1 (depth
+              and color)
   3. kernels  K2, K1 and K3 against their plain PyTorch versions on the
               card, at the bench shapes (512^3, one 8-frame chunk of the
               bench scene with the real ids / fbits / live count of the mask
               pipeline; K1 again with color on a 4-frame chunk; K3 with the
-              host-compacted ids of the chunk padded to 512), with CUDA-event
-              times
+              host-compacted ids of the chunk padded to 512). Each gets its
+              device time per launch, K1 beside its first design (the
+              ablation arm `full`, in turns: old, new, new, old)
   4. check    the brick path against the dense engine on a small input
   5. bench    integrate_frames_bricked_device, 32 frames of 640x480 at 512^3
   6. banana   SplatCamera orbit of the YCB banana -> FusionPipeline(brick,
@@ -25,25 +29,57 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
               banana grid against the splat depth of an orbit view
  10. ablate   the six ablation arms of K1 (K4/K5) against their plain
               versions at phase 3's bench chunk, `full` and `smem_window`
-              also against K1 bit for bit, with CUDA-event times
+              also against K1 bit for bit, with device times
  11. profile  reconplan_tpu_torch.benchmarks.profile_brick end to end: the
               bench scene's stage split and the ablation arms; its JSON
               line is printed on a line of its own
  12. probe    reconplan_tpu_torch.benchmarks.probe_sublane_ops: the four
               microprobe arms (K6) at s0 in {0, 5}, bit-identical to their
               plain versions, with times
-Launch counters are zeroed just before phase 5 and read after phase 6 (K1
-and K2), zeroed before and read after each of phases 7 and 8 (K3), 11
-(every ablation arm) and 12 (every probe arm): each kernel must have been
-launched by its paths. The line before the last is a JSON summary of the
-kernels (the ablation and probe entries give each arm's numbers under
-"arms", and at the top those of K5's `full`, K4's `smem_window` and the
-probe's `baseline`); the last line is the run's JSON status.
+Launch counters are zeroed just before phase 5 and read after phase 5 (one
+bench batch) and after phase 6 (K1 and K2), zeroed before and read after
+each of phases 7 and 8 (K3), 11 (every ablation arm) and 12 (every probe
+arm): each kernel must have been launched by its paths.
+
+The line before the last is a JSON summary of the kernels. For each:
+  ms, device_ms   the kernel's device time per launch: 20 launches
+                  captured in one CUDA graph, CUDA events around a replay,
+                  over 20, the median of 5 replays. events_ms is the mean
+                  of 10 launches timed with CUDA events as the host issues
+                  them: for a short kernel (K2) it is the host's issue
+                  rate, not the kernel.
+  plain_ms        the plain PyTorch version, CUDA events.
+  bound_ms        the least time the card could take for the call's work,
+  bound_by        the larger of its bytes (each input read once, each
+                  output written once: the live bricks' rows, the distinct
+                  depth / color pixels they sample, the mip planes) over
+                  3.35 TB/s, and its f32 operations (counted per
+                  voxel-frame or per test from the code, times the set
+                  brick-frames of this run's data) over 67 TFLOP/s.
+  bound_share     bound_ms / device_ms.
+  l2              "warm": the graph replays the same call, so rows and
+                  inputs that fit the 50 MB L2 stay there, and a kernel
+                  that only moves bytes can read above bound_share 1.
+  launches        launches by the paths of this run; launches_per_batch
+                  those of one 32-frame batch of the path that launches it
+                  (the device path for K1 and K2, launches_per_orbit for
+                  the banana orbit; the host-compacted path for K3; 0 for
+                  the tools' kernels K4-K6).
+  library_ms      one PyTorch call computing the same function, or null
+                  where none does (K1-K5); for K6, x[s0:s0+L, :128].sum(0),
+                  which sums in another order: a yardstick of time only.
+K1's entry also has vs_old_design (the first design's device time over
+K1's, same call), K2's graph_floor_ms (a tiny torch op in a CUDA graph);
+the ablation and probe entries give each arm's numbers under "arms", and
+at the top
+those of K5's `full`, K4's `smem_window` and the probe's `baseline`. The
+last line is the run's JSON status.
 """
 
 import json
 import math
 import os
+import statistics
 import sys
 import time
 
@@ -67,6 +103,92 @@ def events_ms(fn, reps=10):
     return time_ms(fn, reps=reps, warmup=1)
 
 
+def graph_ms(fn, n=20, replays=5):
+    """Device ms per call: ``n`` calls captured in one CUDA graph, CUDA
+    events around each replay, the median of ``replays`` replays over
+    ``n``. The host issues one replay, so its pace is not in the time."""
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return statistics.median(times)
+
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
+# f32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations of one voxel-frame of K1 (K3 and the ablation arms do the
+# same), counted in csrc/brick_integrate.cu: projection 18, z clamp 1, the
+# two pixel coordinates 6; depth / depth_scale, d - z, three tests, the
+# tsdf divide and clip 3, weight add, clamp and reciprocal 3, the average
+# 4, the empty test and the weight clamp 2 (42); color adds 4 a channel.
+K1_OPS, K1_COLOR_OPS = 42, 12
+# f32 operations of one K2 (brick, frame) test, in csrc/active_mask.cu:
+# projection 18, z clamp 1, the two cell coordinates 6, the bin range 8,
+# the z test 1
+K2_OPS = 34
+
+
+def bound(nbytes, nops):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    f32 operations over the f32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_work(ids, fbits, n, T, intr, depths, origin, brick_dims, voxel):
+    """(set brick-frames, distinct in-image pixels sampled, summed over
+    the frames) of the first ``n`` bricks of ``ids`` under ``fbits``, from
+    the plain version's projection."""
+    from reconplan_tpu_torch.ops.kernels.brick_integrate import (
+        _project_voxels, _voxel_world)
+
+    F, Hd, Wd = depths.shape
+    brick_frames = pixels = 0
+    for f in range(F):
+        sel = ((fbits[:n] >> f) & 1) > 0
+        if not sel.any():
+            continue
+        brick_frames += int(sel.sum())
+        wx, wy, wz = _voxel_world(ids[:n][sel], brick_dims, origin, voxel)
+        _, _, _, in_img, pix = _project_voxels(T[f].reshape(16), wx, wy, wz,
+                                               intr, Hd, Wd)
+        pixels += int(torch.unique(pix[in_img]).numel())
+    return brick_frames, pixels
+
+
+def k1_bound(n, brick_frames, pixels, planes, color_ops, F):
+    """K1-shaped work: ``n`` brick rows of ``planes`` planes read and
+    written, ids and frame bits, ``pixels`` 4-byte samples per sampled
+    plane (depth, and color when ``color_ops``), the poses; 1024
+    voxel-frames a brick-frame."""
+    sampled = 2 if color_ops else 1
+    nbytes = (n * planes * 4096 * 2 + n * 8 + pixels * 4 * sampled
+              + F * 64)
+    return bound(nbytes, brick_frames * 1024 * (K1_OPS + color_ops))
+
+
+def bound_fields(bound_pair, device_ms):
+    b_ms, by = bound_pair
+    return {"bound_ms": b_ms, "bound_by": by,
+            "bound_share": b_ms / device_ms, "l2": "warm"}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -85,6 +207,10 @@ def main():
         brick_integrate_fixed_reference, brick_integrate_reference, build,
         gather_probe)
     from reconplan_tpu_torch.ops.kernels.brick_ablate import ARMS
+    from reconplan_tpu_torch.ops.kernels.brick_integrate import occupancy
+    from reconplan_tpu_torch.ops.kernels.gather_probe import (
+        ARMS as PROBE_ARMS, GRID as PROBE_GRID, H as PROBE_H, LOOP,
+        W as PROBE_W)
     from reconplan_tpu_torch.parallel import (
         gather_brick_grid, make_sharded_brick_grid,
         sharded_integrate_frames_bricked)
@@ -102,6 +228,24 @@ def main():
     lib_path = build.build(verbose=True)
     build.load_library()
     phase("build", f"{lib_path.name} in {time.perf_counter() - t0:.2f} s")
+    for name, u in build.resource_usage().items():
+        if name.startswith(("brick_integrate_kernel", "active_mask_kernel")):
+            phase("build", f"ptxas {name}: {u.get('registers')} registers, "
+                  f"{u.get('smem_bytes')} B smem, spill stores "
+                  f"{u.get('spill_stores')} B, loads {u.get('spill_loads')} B")
+    sass = build.sass_counts()
+    phase("build", "SASS instructions (MUFU, FCHK, BSSY) of each kernel: "
+          + ("no cuobjdump" if sass is None else ", ".join(
+              f"{k} {v['instructions']} ({v['MUFU']}, {v['FCHK']}, "
+              f"{v['BSSY']})" for k, v in sass.items())))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k1_occupancy = {}
+    for name, color in (("depth", False), ("color", True)):
+        blocks, threads = occupancy(color, dev.index or 0)
+        k1_occupancy[name] = {"blocks_per_sm": blocks, "threads": threads}
+    phase("build", f"K1 occupancy query on {sms} SMs, blocks per SM x "
+          "threads: " + ", ".join(f"{k} {v['blocks_per_sm']} x {v['threads']}"
+                                  for k, v in k1_occupancy.items()))
 
     # --- 3. kernels against their plain versions at the bench shapes -------
     depths, poses, K = make_frames(32)
@@ -121,18 +265,32 @@ def main():
     bits = active_mask(*k2_args, mip_cell=8)
     bits_ref = active_mask_reference(*k2_args, mip_cell=8)
     torch.cuda.synchronize()
-    k2_err = (bits.long() - bits_ref.long()).abs().max().item()
     if not torch.equal(bits, bits_ref):
         raise AssertionError(
             f"K2 bits differ on {(bits != bits_ref).sum().item()} bricks")
-    k2_ms = events_ms(lambda: active_mask(*k2_args, mip_cell=8))
-    k2_plain_ms = events_ms(lambda: active_mask_reference(*k2_args,
-                                                          mip_cell=8))
+    k2_run = lambda: active_mask(*k2_args, mip_cell=8)  # noqa: E731
+    k2 = {"max_abs_err": (bits.long() - bits_ref.long()).abs().max().item(),
+          "events_ms": events_ms(k2_run), "device_ms": graph_ms(k2_run),
+          "plain_ms": events_ms(lambda: active_mask_reference(
+              *k2_args, mip_cell=8))}
+    # the floor of a device time from a CUDA graph: a tiny torch op
+    tiny = torch.zeros(1, device=dev)
+    k2["graph_floor_ms"] = graph_ms(lambda: tiny.add_(1))
+    # the mip planes whole, the bits, the poses; one test a (brick, frame)
+    k2.update(bound_fields(bound(
+        2 * occ0.numel() * 4 + NB * 4 + 8 * 64 + 8, NB * 8 * K2_OPS),
+        k2["device_ms"]))
     phase("kernels", f"K2 active_mask: bits identical on {NB} bricks "
-          f"({(bits != 0).sum().item()} active) | kernel {k2_ms:.4f} ms, "
-          f"plain {k2_plain_ms:.4f} ms")
+          f"({(bits != 0).sum().item()} active) | device "
+          f"{k2['device_ms']:.5f} ms a launch (bound {k2['bound_ms']:.5f}, "
+          f"{k2['bound_by']}), events {k2['events_ms']:.4f}, plain "
+          f"{k2['plain_ms']:.4f} ms | a tiny torch op in a CUDA graph "
+          f"{k2['graph_floor_ms']:.5f}")
 
     def k1_compare(n_frames, colors, rgb):
+        """K1 against its plain version on a chunk of the bench scene;
+        returns its numbers, the kernel's output planes and the rest of
+        the call's arguments."""
         d, T = d_all[:n_frames], T_all[:n_frames].contiguous()
         ids, fbits, n, _ = tb.chunk_active_set(
             d, T, intr, grid.origin, bd, VOXEL, trunc, MAX_ACTIVE, NB)
@@ -150,45 +308,87 @@ def main():
         if rgb is not None and not torch.equal(planes[2], ref[2]):
             raise AssertionError("K1 packed rgb differs")
         scratch = tuple(None if a is None else a.clone() for a in planes)
-        ms = events_ms(lambda: brick_integrate(*scratch, *rest))
-        plain_ms = events_ms(lambda: brick_integrate_reference(*scratch,
-                                                               *rest), reps=3)
-        return err, ms, plain_ms, n.item()
+        run = lambda: brick_integrate(*scratch, *rest)  # noqa: E731
+        out = {"max_abs_err": err, "events_ms": events_ms(run),
+               "device_ms": graph_ms(run),
+               "plain_ms": events_ms(lambda: brick_integrate_reference(
+                   *scratch, *rest), reps=3),
+               "live_bricks": n.item()}
+        out["brick_frames"], out["pixels"] = k1_work(
+            ids, fbits, out["live_bricks"], T, intr, d, grid.origin, bd,
+            VOXEL)
+        out.update(bound_fields(k1_bound(
+            out["live_bricks"], out["brick_frames"], out["pixels"],
+            2 if rgb is None else 3, 0 if rgb is None else K1_COLOR_OPS,
+            n_frames), out["device_ms"]))
+        return out, planes, rest
 
-    k1_err, k1_ms, k1_plain_ms, n_live = k1_compare(8, None, None)
-    phase("kernels", f"K1 brick_integrate depth: sdf max err {k1_err:.3g}, "
-          f"weight identical, {n_live} live bricks | kernel {k1_ms:.4f} ms, "
-          f"plain {k1_plain_ms:.4f} ms")
+    k1, _, rest = k1_compare(8, None, None)
+    # the depth-only call as brick_ablate takes it
+    k1_depth_rest = rest[:6] + rest[7:]
+    # the first design (ablation arm `full`) and K1, in turns
+    scratch = (grid.sdf.clone(), grid.weight.clone())
+    old_run = lambda: brick_ablate("full", *scratch, *k1_depth_rest)  # noqa: E731
+    new_run = lambda: brick_integrate(*scratch, None, *rest)  # noqa: E731
+    turns = [graph_ms(old_run), graph_ms(new_run), graph_ms(new_run),
+             graph_ms(old_run)]
+    k1["old_design_device_ms"] = (turns[0] + turns[3]) / 2
+    k1["vs_old_design"] = k1["old_design_device_ms"] / (
+        (turns[1] + turns[2]) / 2)
+    k1["turns_ms"] = turns
+    phase("kernels", f"K1 brick_integrate depth: sdf max err "
+          f"{k1['max_abs_err']:.3g}, weight identical, {k1['live_bricks']} "
+          f"live bricks, {k1['brick_frames']} brick-frames | device "
+          f"{k1['device_ms']:.5f} ms a launch (bound {k1['bound_ms']:.5f}, "
+          f"{k1['bound_by']}), events {k1['events_ms']:.4f}, plain "
+          f"{k1['plain_ms']:.4f} ms")
+    phase("kernels", "K1 against its first design (`full`), in turns old, "
+          "new, new, old: " + ", ".join(f"{t:.5f}" for t in turns)
+          + f" ms -> {k1['vs_old_design']:.3f}x")
     gen = torch.Generator(device=dev).manual_seed(0)
     colors = torch.randint(0, 1 << 24, (4,) + d_all.shape[1:], generator=gen,
                            dtype=torch.int32, device=dev)
     rgb = torch.randint(0, 1 << 24, grid.sdf.shape, generator=gen,
                         dtype=torch.int32, device=dev)
-    k1c_err, k1c_ms, k1c_plain_ms, n_live_c = k1_compare(4, colors, rgb)
+    k1c, _, _ = k1_compare(4, colors, rgb)
     phase("kernels", f"K1 brick_integrate color (4 frames): sdf max err "
-          f"{k1c_err:.3g}, weight and rgb identical, {n_live_c} live bricks "
-          f"| kernel {k1c_ms:.4f} ms, plain {k1c_plain_ms:.4f} ms")
+          f"{k1c['max_abs_err']:.3g}, weight and rgb identical, "
+          f"{k1c['live_bricks']} live bricks, {k1c['brick_frames']} "
+          f"brick-frames | device {k1c['device_ms']:.5f} ms a launch (bound "
+          f"{k1c['bound_ms']:.5f}, {k1c['bound_by']}), events "
+          f"{k1c['events_ms']:.4f}, plain {k1c['plain_ms']:.4f} ms")
+    del rgb, colors
     # K3 on the same chunk: the host path's compacted ids, padded to 512
     mask = tb.active_brick_mask(bd, grid.origin, VOXEL, trunc, d8, T8, *intr)
     ids_np, n_k3 = tb.host_active_ids(mask, bd, NB)
     ids = torch.as_tensor(ids_np, device=dev)
     planes = (grid.sdf.clone(), grid.weight.clone())
     ref = tuple(a.clone() for a in planes)
-    rest = (ids, 0, NB, T8, intr, d8, grid.origin, bd, VOXEL, trunc,
-            1000.0, 3.0, 64.0)
-    brick_integrate_fixed(*planes, *rest)
-    brick_integrate_fixed_reference(*ref, *rest)
+    k3_rest = (ids, 0, NB, T8, intr, d8, grid.origin, bd, VOXEL, trunc,
+               1000.0, 3.0, 64.0)
+    brick_integrate_fixed(*planes, *k3_rest)
+    brick_integrate_fixed_reference(*ref, *k3_rest)
     torch.cuda.synchronize()
     k3_err = (planes[0] - ref[0]).abs().max().item()
     if k3_err > 1e-6 or not torch.equal(planes[1], ref[1]):
         raise AssertionError(f"K3 sdf err {k3_err} or weight differs")
-    k3_ms = events_ms(lambda: brick_integrate_fixed(*planes, *rest))
-    k3_plain_ms = events_ms(
-        lambda: brick_integrate_fixed_reference(*ref, *rest), reps=3)
+    k3_run = lambda: brick_integrate_fixed(*planes, *k3_rest)  # noqa: E731
+    k3 = {"max_abs_err": k3_err, "events_ms": events_ms(k3_run),
+          "device_ms": graph_ms(k3_run),
+          "plain_ms": events_ms(lambda: brick_integrate_fixed_reference(
+              *ref, *k3_rest), reps=3)}
+    # every frame of every real brick; the padding's blocks return at once
+    k3_bf, k3_pix = k1_work(ids, torch.full_like(ids, 255), n_k3, T8, intr,
+                            d8, grid.origin, bd, VOXEL)
+    k3.update(bound_fields(bound(
+        n_k3 * 2 * 4096 * 2 + len(ids_np) * 4 + k3_pix * 4 + 8 * 64,
+        k3_bf * 1024 * K1_OPS), k3["device_ms"]))
     phase("kernels", f"K3 brick_integrate_fixed (8 frames): sdf max err "
           f"{k3_err:.3g}, weight identical, {n_k3} bricks padded to "
-          f"{len(ids_np)} | kernel {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms")
-    del grid, planes, ref
+          f"{len(ids_np)} | device {k3['device_ms']:.5f} ms a launch (bound "
+          f"{k3['bound_ms']:.5f}, {k3['bound_by']}), events "
+          f"{k3['events_ms']:.4f}, plain {k3['plain_ms']:.4f} ms")
+    del grid, planes, ref, scratch
 
     # --- 4. the whole brick path against the dense engine, small input -----
     sd, sp, sK = make_frames(8, H=120, W=160, fx=150.0, fy=150.0)
@@ -219,6 +419,8 @@ def main():
     w = grid.weight
     if not torch.isfinite(grid.sdf).all() or w.max().item() <= 0:
         raise AssertionError("bench grid is empty or not finite")
+    per_batch = {"active_mask": active_mask.launches,
+                 "brick_integrate": brick_integrate.launches}
     phase("bench", f"32 frames 640x480 -> {N}^3: n_active {int(n_active)}, "
           f"{32 / dt:.1f} frames/s cold-grid wall clock "
           f"(host clock, one batch) | {card}")
@@ -254,6 +456,7 @@ def main():
     times["extract_s"] = time.perf_counter() - t0
     launches = {"active_mask": active_mask.launches,
                 "brick_integrate": brick_integrate.launches}
+    per_orbit = {k: v - per_batch[k] for k, v in launches.items()}
     if len(tris) == 0:
         raise AssertionError("banana mesh has no triangles")
     if not (torch.isfinite(tris).all() and torch.isfinite(cols).all()
@@ -277,6 +480,7 @@ def main():
     torch.cuda.synchronize()
     dt_cold = time.perf_counter() - t0
     k3_bricked = brick_integrate_fixed.launches
+    per_batch["brick_integrate_fixed"] = k3_bricked
     # Each brick path folds a subset of the frames into a voxel, and not
     # the same subset, so equal weights alone do not mean equal frames. A
     # weight equal to the dense engine's, which folds every frame, does:
@@ -383,6 +587,21 @@ def main():
             1000.0, 3.0, 64.0)
     k1_planes = (grid.sdf.clone(), grid.weight.clone())
     brick_integrate(*k1_planes, None, *rest[:6], None, *rest[6:])
+    # each arm's work on this chunk: `full` and `smem_window` do K1's,
+    # `one_row` and `no_gather` K1's operations on (almost) no depth,
+    # `no_fbits` every frame of each live brick, `rw_only` the rows alone
+    n_live = n.item()
+    rows = n_live * 2 * 4096 * 2 + n_live * 8 + 8 * 64
+    nf_bf, nf_pix = k1_work(ids, torch.full_like(fbits, 255), n_live, T8,
+                            intr, d8, grid.origin, bd, VOXEL)
+    arm_bound = {
+        "full": (k1["bound_ms"], k1["bound_by"]),
+        "smem_window": (k1["bound_ms"], k1["bound_by"]),
+        "one_row": bound(rows, k1["brick_frames"] * 1024 * K1_OPS),
+        "no_gather": bound(rows, k1["brick_frames"] * 1024 * K1_OPS),
+        "no_fbits": k1_bound(n_live, nf_bf, nf_pix, 2, 0, 8),
+        "rw_only": bound(rows, 0),
+    }
     ablate = {}
     for arm in ARMS:
         planes = (grid.sdf.clone(), grid.weight.clone())
@@ -398,15 +617,24 @@ def main():
             planes[1], k1_planes[1])
         if arm in ("full", "smem_window") and not as_k1:
             raise AssertionError(f"ablation arm {arm} differs from K1")
-        ms = events_ms(lambda a=arm, p=planes: brick_ablate(a, *p, *rest))
-        plain_ms = events_ms(
-            lambda a=arm, p=ref: brick_ablate_reference(a, *p, *rest), reps=3)
-        ablate[arm] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        run = lambda a=arm, p=planes: brick_ablate(a, *p, *rest)  # noqa: E731
+        ablate[arm] = {
+            "max_abs_err": err, "events_ms": events_ms(run),
+            "device_ms": graph_ms(run),
+            "plain_ms": events_ms(
+                lambda a=arm, p=ref: brick_ablate_reference(a, *p, *rest),
+                reps=3)}
+        ablate[arm]["ms"] = ablate[arm]["device_ms"]
+        ablate[arm].update(bound_fields(arm_bound[arm],
+                                        ablate[arm]["device_ms"]))
         phase("ablate", f"{arm}: sdf max err {err:.3g}, weight identical"
               + (", bit-identical to K1" if as_k1 else "")
-              + f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              + f" | device {ablate[arm]['device_ms']:.5f} ms a launch "
+              f"(bound {ablate[arm]['bound_ms']:.5f}), events "
+              f"{ablate[arm]['events_ms']:.4f}, plain "
+              f"{ablate[arm]['plain_ms']:.4f} ms")
         del planes, ref
-    phase("ablate", f"{n.item()} live bricks of the 8-frame bench chunk | "
+    phase("ablate", f"{n_live} live bricks of the 8-frame bench chunk | "
           f"{card}")
     del grid, k1_planes
 
@@ -436,11 +664,37 @@ def main():
         gather_probe.launches[arm] = 0
     probe = probe_sublane_ops.run()
     probe_launches = dict(gather_probe.launches)
+    # device times and the library yardstick on the probe's own input
+    x = torch.as_tensor(np.random.default_rng(probe_sublane_ops.SEED).random(
+        (PROBE_H, PROBE_W), dtype=np.float32), device=dev)
+    probe_arms = {}
+    for arm in PROBE_ARMS:
+        L = PROBE_H if arm == "baseline" else LOOP
+        dev_ms, lib_ms = [], []
+        for s0 in probe_sublane_ops.S0S:
+            a = 0 if arm == "baseline" else min(s0, PROBE_H - LOOP)
+            dev_ms.append(graph_ms(lambda s=s0, r=arm: gather_probe(r, x, s)))
+            lib_ms.append(graph_ms(lambda a=a, L=L: x[a:a + L, :128].sum(0)))
+        probe_arms[arm] = {
+            "launches": probe_launches[arm], "ms": float(np.mean(dev_ms)),
+            "device_ms": float(np.mean(dev_ms)),
+            "events_ms": probe["ms"][arm], "plain_ms": probe["plain_ms"][arm],
+            "max_abs_err": probe["max_abs_err"][arm],
+            "library_ms": float(np.mean(lib_ms)),
+            **bound_fields(bound(x.numel() * 4 + 8 * 128 * 4,
+                                 PROBE_GRID * 128 * L),
+                           float(np.mean(dev_ms)))}
     phase("probe", "bit-identical to the plain versions at s0 in "
-          f"{probe['s0']} | kernel ms "
+          f"{probe['s0']} | device ms "
+          + ", ".join(f"{a} {v['device_ms']:.5f}"
+                      for a, v in probe_arms.items())
+          + " | events ms "
           + ", ".join(f"{a} {v:.4f}" for a, v in probe["ms"].items())
           + " | plain ms "
-          + ", ".join(f"{a} {v:.4f}" for a, v in probe["plain_ms"].items()))
+          + ", ".join(f"{a} {v:.4f}" for a, v in probe["plain_ms"].items())
+          + " | library x[s0:s0+L, :128].sum(0) ms "
+          + ", ".join(f"{a} {v['library_ms']:.5f}"
+                      for a, v in probe_arms.items()))
 
     for arm, count in {**ablate_launches, **probe_launches}.items():
         if count == 0:
@@ -450,55 +704,65 @@ def main():
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"main path never launched {name}")
-    phase("launches", json.dumps(launches))
+    phase("launches", json.dumps(launches) + " | one bench batch "
+          + json.dumps(per_batch) + " | one banana orbit "
+          + json.dumps(per_orbit))
+
+    def entry(name, source, replaces, nums, **extra):
+        """One kernel's line: its device time as ``ms``."""
+        keys = ("max_abs_err", "device_ms", "events_ms", "plain_ms",
+                "bound_ms", "bound_by", "bound_share", "l2")
+        return {"name": name, "route": "cuda",
+                "source": "reconplan_tpu_torch/csrc/" + source,
+                "replaces": replaces, "ms": nums["device_ms"],
+                **{k: nums[k] for k in keys}, "library_ms": None, **extra}
 
     # K4 and K5 share one templated kernel; each arm goes under one entry
     # only (K4's `full2` is K5's `full`), and the first arm gives the
     # entry's own numbers
     def ablate_entry(name, replaces, arms):
-        return {
-            "name": name, "route": "cuda",
-            "source": "reconplan_tpu_torch/csrc/brick_ablate.cu",
-            "replaces": replaces,
-            "launches": sum(ablate_launches[a] for a in arms),
-            "max_abs_err": max(ablate[a]["max_abs_err"] for a in arms),
-            "ms": ablate[arms[0]]["ms"],
-            "plain_ms": ablate[arms[0]]["plain_ms"],
-            "arms": {a: {"launches": ablate_launches[a], **ablate[a]}
-                     for a in arms},
-        }
+        return entry(
+            name, "brick_ablate.cu", replaces, ablate[arms[0]],
+            launches=sum(ablate_launches[a] for a in arms),
+            launches_per_batch=0,
+            arms={a: {"launches": ablate_launches[a], **ablate[a],
+                      "library_ms": None} for a in arms})
 
     print(json.dumps({"kernels": [
-        {"name": "active_mask", "route": "cuda",
-         "source": "reconplan_tpu_torch/csrc/active_mask.cu",
-         "replaces": "reconplan_tpu/ops/tsdf_brick.py:278",
-         "launches": launches["active_mask"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "brick_integrate", "route": "cuda",
-         "source": "reconplan_tpu_torch/csrc/brick_integrate.cu",
-         "replaces": "reconplan_tpu/ops/tsdf_brick.py:682",
-         "launches": launches["brick_integrate"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "brick_integrate_fixed", "route": "cuda",
-         "source": "reconplan_tpu_torch/csrc/brick_integrate_fixed.cu",
-         "replaces": "reconplan_tpu/ops/tsdf_brick.py:503",
-         "launches": launches["brick_integrate_fixed"],
-         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms},
+        entry("active_mask", "active_mask.cu",
+              "reconplan_tpu/ops/tsdf_brick.py:278", k2,
+              launches=launches["active_mask"],
+              launches_per_batch=per_batch["active_mask"],
+              launches_per_orbit=per_orbit["active_mask"],
+              graph_floor_ms=k2["graph_floor_ms"]),
+        entry("brick_integrate", "brick_integrate.cu",
+              "reconplan_tpu/ops/tsdf_brick.py:682", k1,
+              launches=launches["brick_integrate"],
+              launches_per_batch=per_batch["brick_integrate"],
+              launches_per_orbit=per_orbit["brick_integrate"],
+              live_bricks=k1["live_bricks"],
+              brick_frames=k1["brick_frames"],
+              vs_old_design=k1["vs_old_design"],
+              old_design_device_ms=k1["old_design_device_ms"],
+              occupancy=k1_occupancy,
+              color={k: k1c[k] for k in (
+                  "device_ms", "events_ms", "plain_ms", "max_abs_err",
+                  "bound_ms", "bound_by", "bound_share", "live_bricks",
+                  "brick_frames")}),
+        entry("brick_integrate_fixed", "brick_integrate_fixed.cu",
+              "reconplan_tpu/ops/tsdf_brick.py:503", k3,
+              launches=launches["brick_integrate_fixed"],
+              launches_per_batch=per_batch["brick_integrate_fixed"]),
         ablate_entry("brick_ablate_k5", "benchmarks/profile_brick.py:75",
                      ("full", "no_fbits", "no_gather", "one_row", "rw_only")),
         ablate_entry("brick_ablate_k4", "benchmarks/profile_brick.py:320",
                      ("smem_window",)),
-        {"name": "gather_probe", "route": "cuda",
-         "source": "reconplan_tpu_torch/csrc/gather_probe.cu",
-         "replaces": "benchmarks/probe_sublane_ops.py:35",
-         "launches": launches["gather_probe"],
-         "max_abs_err": max(probe["max_abs_err"].values()),
-         "ms": probe["ms"]["baseline"],
-         "plain_ms": probe["plain_ms"]["baseline"],
-         "arms": {a: {"launches": probe_launches[a], "ms": probe["ms"][a],
-                      "plain_ms": probe["plain_ms"][a],
-                      "max_abs_err": probe["max_abs_err"][a]}
-                  for a in probe["ms"]}},
+        {**entry("gather_probe", "gather_probe.cu",
+                 "benchmarks/probe_sublane_ops.py:35",
+                 probe_arms["baseline"],
+                 launches=launches["gather_probe"], launches_per_batch=0,
+                 arms=probe_arms),
+         "library_ms": probe_arms["baseline"]["library_ms"]},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

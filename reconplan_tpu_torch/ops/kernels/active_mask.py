@@ -19,6 +19,8 @@ from reconplan_tpu_torch.ops.kernels.build import (
 )
 
 BRICK_Z, BRICK_Y, BRICK_X = 8, 8, 16  # 8x8x16 voxels = one (8, 128) row
+# the cells ``_occupancy_cell`` picks; the kernel shifts by log2 of the cell
+MIP_CELLS = (8, 16, 32)
 
 
 def _band(voxel_size, trunc):
@@ -90,6 +92,44 @@ def active_mask_reference(brick_dims, origin, voxel_size, trunc,
     return to_int32_bits(active)
 
 
+def _check(occ0, occ1, binp, T_w2c, origin, mip_cell):
+    """Raise unless the arguments are what the kernel and its plain
+    version take."""
+    F, Hm, Wm = occ0.shape
+    dev = occ0.device
+    if F > 32:
+        raise ValueError(f"{F} frames do not fit a 32-bit frame mask")
+    if mip_cell not in MIP_CELLS:
+        raise ValueError(f"mip_cell {mip_cell} is not one of {MIP_CELLS}")
+    check_tensor("occ0", occ0, torch.int32, (F, Hm, Wm), dev)
+    check_tensor("occ1", occ1, torch.int32, (F, Hm, Wm), dev)
+    check_tensor("binp", binp, torch.float32, (2,), dev)
+    check_tensor("T_w2c", T_w2c, torch.float32, (F, 4, 4), dev)
+    check_tensor("origin", origin, torch.float32, (3,), dev)
+
+
+def _launch(brick_dims, origin, voxel_size, trunc, occ0, occ1, binp, T_w2c,
+            fx, fy, cx, cy, mip_cell):
+    dev = occ0.device
+    if dev.type != "cuda":
+        raise ValueError(f"active_mask: unsupported device {dev}")
+    if T_w2c.data_ptr() % 16:
+        raise ValueError("T_w2c must be 16-byte aligned (the kernel reads "
+                         "each pose row as one float4)")
+    bd, bh, bw = brick_dims
+    F, Hm, Wm = occ0.shape
+    out = torch.empty(bd * bh * bw, dtype=torch.int32, device=dev)
+    err = load_library().active_mask_launch(
+        occ0.data_ptr(), occ1.data_ptr(), T_w2c.data_ptr(),
+        origin.data_ptr(), binp.data_ptr(), out.data_ptr(),
+        bd * bh * bw, bh, bw, F, Hm, Wm, int(mip_cell),
+        float(np.float32(voxel_size)), _band(voxel_size, trunc),
+        fx, fy, cx, cy, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check_launch("active_mask_launch", err)
+    return out
+
+
 def active_mask(brick_dims, origin, voxel_size, trunc,
                 occ0, occ1, binp, T_w2c, fx, fy, cx, cy, mip_cell=8):
     """(NB,) i32 per-frame active bits (bit f set = brick active in frame
@@ -97,37 +137,17 @@ def active_mask(brick_dims, origin, voxel_size, trunc,
 
     CUDA tensors launch the K2 kernel (and count the launch in
     ``active_mask.launches``); CPU tensors take the plain version.
+    ``mip_cell`` must be one of :data:`MIP_CELLS`.
     """
-    bd, bh, bw = brick_dims
-    NB = bd * bh * bw
-    F, Hm, Wm = occ0.shape
-    dev = occ0.device
-    if F > 32:
-        raise ValueError(f"{F} frames do not fit a 32-bit frame mask")
-    check_tensor("occ0", occ0, torch.int32, (F, Hm, Wm), dev)
-    check_tensor("occ1", occ1, torch.int32, (F, Hm, Wm), dev)
-    check_tensor("binp", binp, torch.float32, (2,), dev)
-    check_tensor("T_w2c", T_w2c, torch.float32, (F, 4, 4), dev)
-    check_tensor("origin", origin, torch.float32, (3,), dev)
-    if dev.type == "cpu":
-        return active_mask_reference(
-            brick_dims, origin, voxel_size, trunc, occ0, occ1, binp, T_w2c,
-            fx, fy, cx, cy, mip_cell,
-        )
-    if dev.type != "cuda":
-        raise ValueError(f"active_mask: unsupported device {dev}")
-    lib = load_library()
-    out = torch.empty(NB, dtype=torch.int32, device=dev)
-    err = lib.active_mask_launch(
-        occ0.data_ptr(), occ1.data_ptr(), T_w2c.data_ptr(),
-        origin.data_ptr(), binp.data_ptr(), out.data_ptr(),
-        NB, bh, bw, F, Hm, Wm, int(mip_cell),
-        float(np.float32(voxel_size)), _band(voxel_size, trunc),
-        fx, fy, cx, cy, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    check_launch("active_mask_launch", err)
+    args = (brick_dims, origin, voxel_size, trunc, occ0, occ1, binp, T_w2c,
+            fx, fy, cx, cy, mip_cell)
+    _check(occ0, occ1, binp, T_w2c, origin, mip_cell)
+    if occ0.device.type == "cpu":
+        return active_mask_reference(*args)
+    out = _launch(*args)
     active_mask.launches += 1
     return out
 
 
 active_mask.launches = 0
+

@@ -10,9 +10,17 @@ so the two may differ from it there and only there.
 
 The sdf / weight / rgb planes are updated in place (the JAX kernel aliases
 them as outputs).
+
+The kernel is persistent: its grid is the occupancy query's blocks per SM
+times the card's SMs (at most ``len(ids)``), and its blocks take bricks
+from a work counter in device memory, one for each stream
+(:func:`work_slot`).
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -25,7 +33,9 @@ from reconplan_tpu_torch.ops.kernels.build import (
 from reconplan_tpu_torch.utils.device import scalar_tensor
 
 BRICK_VOXELS = 1024  # 8 (z) x 8 (y) x 16 (x)
-
+# work counters of the kernel, one set per device (kWorkSlots in
+# ``csrc/brick_integrate.cu``)
+WORK_SLOTS = 1024
 
 def _voxel_offsets(device):
     """Local (lx, ly, lz) f32 of the 1024 voxels of a brick row: sublane =
@@ -138,19 +148,49 @@ def brick_integrate_reference(sdf_b, weight_b, rgb_b, ids, fbits, n_live,
             0, rows, q[0] | (q[1] << 8) | (q[2] << 16))
 
 
-def brick_integrate(sdf_b, weight_b, rgb_b, ids, fbits, n_live, T_w2c,
-                    intr, depths, colors, origin, brick_dims, voxel_size,
-                    trunc, depth_scale, depth_max, max_weight):
-    """Integrate up to ``len(ids)`` bricks (the first ``n_live[0]`` are
-    live) against the frames whose bit is set in ``fbits``, in place.
+@functools.cache
+def occupancy(with_color, device_index):
+    """(blocks per SM, threads per block) of the kernel on the card, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; queried once."""
+    lib = load_library()
+    blocks, threads = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device_index):
+        err = lib.brick_integrate_occupancy(
+            int(with_color), ctypes.byref(blocks), ctypes.byref(threads))
+    check_launch("brick_integrate_occupancy", err)
+    return blocks.value, threads.value
 
-    ``ids``/``fbits`` (M,) i32, ``n_live`` (1,) i32 on the device (never
-    read on the host), ``T_w2c`` (F, 4, 4) f32, ``intr`` (fx, fy, cx, cy)
-    floats, ``depths`` (F, Hd, Wd) f32 raw, ``colors`` (F, Hd, Wd) i32
-    packed B<<16|G<<8|R or None (then ``rgb_b`` must be None too).
-    CUDA tensors launch the K1 kernel (counted in
-    ``brick_integrate.launches``); CPU tensors take the plain version.
-    """
+
+def grid_size(with_color, device, max_active):
+    """The persistent grid: blocks per SM x SMs, at most ``max_active``."""
+    blocks, _ = occupancy(with_color, device.index or 0)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return min(max_active, blocks * sms)
+
+
+_SLOTS = {}
+
+
+def work_slot(device, stream):
+    """The slot of the kernel's work counters that launches on ``stream``
+    use: each (device, stream) gets its own, at first use. A counter is
+    zero between launches (the last block of each launch resets it on the
+    stream), so launches on one stream, which run in turn, share it safely.
+    Graphs captured on one stream share its slot too: replay them in turn."""
+    key = (device.index or 0, stream.cuda_stream)
+    if key not in _SLOTS:
+        taken = sum(k[0] == key[0] for k in _SLOTS)
+        if taken == WORK_SLOTS:
+            raise RuntimeError(f"brick_integrate: more than {WORK_SLOTS} "
+                               f"streams on {device}")
+        _SLOTS[key] = taken
+    return _SLOTS[key]
+
+
+def _check(sdf_b, weight_b, rgb_b, ids, fbits, n_live, T_w2c, depths,
+           colors, origin):
+    """Raise unless the arguments are what the kernel and its plain
+    version take."""
     dev = sdf_b.device
     NB1 = sdf_b.shape[0]
     M = ids.shape[0]
@@ -171,29 +211,60 @@ def brick_integrate(sdf_b, weight_b, rgb_b, ids, fbits, n_live, T_w2c,
     check_tensor("T_w2c", T_w2c, torch.float32, (F, 4, 4), dev)
     check_tensor("depths", depths, torch.float32, (F, Hd, Wd), dev)
     check_tensor("origin", origin, torch.float32, (3,), dev)
-    args = (sdf_b, weight_b, rgb_b, ids, fbits, n_live, T_w2c, intr, depths,
-            colors, origin, brick_dims, voxel_size, trunc, depth_scale,
-            depth_max, max_weight)
-    if dev.type == "cpu":
-        brick_integrate_reference(*args)
-        return
+
+
+def _launch(sdf_b, weight_b, rgb_b, ids, fbits, n_live, T_w2c, intr,
+            depths, colors, origin, brick_dims, voxel_size, trunc,
+            depth_scale, depth_max, max_weight):
+    dev = sdf_b.device
     if dev.type != "cuda":
         raise ValueError(f"brick_integrate: unsupported device {dev}")
+    if not (float(np.float32(depth_scale)) > 0 and float(np.float32(trunc)) > 0):
+        raise ValueError("depth_scale and trunc must be > 0 (the kernel "
+                         "skips divides whose result that makes exact)")
     lib = load_library()
+    F, Hd, Wd = depths.shape
     _, bh, bw = brick_dims
+    M = ids.shape[0]
+    stream = torch.cuda.current_stream(dev)
     f32 = lambda v: float(np.float32(v))  # noqa: E731
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = lib.brick_integrate_launch(
         sdf_b.data_ptr(), weight_b.data_ptr(), ptr(rgb_b), ids.data_ptr(),
-        fbits.data_ptr(), n_live.data_ptr(), M, T_w2c.data_ptr(),
-        origin.data_ptr(), depths.data_ptr(), ptr(colors),
+        fbits.data_ptr(), n_live.data_ptr(), M, work_slot(dev, stream),
+        grid_size(rgb_b is not None, dev, M),
+        T_w2c.data_ptr(), origin.data_ptr(), depths.data_ptr(), ptr(colors),
         F, Hd, Wd, bh, bw,
         f32(voxel_size), f32(trunc), *map(f32, intr), f32(depth_scale),
-        f32(depth_max), f32(max_weight),
-        torch.cuda.current_stream(dev).cuda_stream,
+        f32(depth_max), f32(max_weight), stream.cuda_stream,
     )
     check_launch("brick_integrate_launch", err)
+
+
+def brick_integrate(sdf_b, weight_b, rgb_b, ids, fbits, n_live, T_w2c,
+                    intr, depths, colors, origin, brick_dims, voxel_size,
+                    trunc, depth_scale, depth_max, max_weight):
+    """Integrate up to ``len(ids)`` bricks (the first ``n_live[0]`` are
+    live) against the frames whose bit is set in ``fbits``, in place.
+
+    ``ids``/``fbits`` (M,) i32, ``n_live`` (1,) i32 on the device (never
+    read on the host), ``T_w2c`` (F, 4, 4) f32, ``intr`` (fx, fy, cx, cy)
+    floats, ``depths`` (F, Hd, Wd) f32 raw, ``colors`` (F, Hd, Wd) i32
+    packed B<<16|G<<8|R or None (then ``rgb_b`` must be None too).
+    CUDA tensors launch the K1 kernel (counted in
+    ``brick_integrate.launches``); CPU tensors take the plain version.
+    """
+    args = (sdf_b, weight_b, rgb_b, ids, fbits, n_live, T_w2c, intr, depths,
+            colors, origin, brick_dims, voxel_size, trunc, depth_scale,
+            depth_max, max_weight)
+    _check(sdf_b, weight_b, rgb_b, ids, fbits, n_live, T_w2c, depths,
+           colors, origin)
+    if sdf_b.device.type == "cpu":
+        brick_integrate_reference(*args)
+        return
+    _launch(*args)
     brick_integrate.launches += 1
 
 
 brick_integrate.launches = 0
+

@@ -17,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -26,6 +27,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libreconplan_kernels.so"
+PTXAS_LOG = "ptxas.log"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -40,8 +42,9 @@ _SIGNATURES = {
         [_P] * 6 + [_I] * 7 + [_F] * 6 + [_P]
     ),
     "brick_integrate_launch": (
-        [_P] * 6 + [_I] + [_P] * 4 + [_I] * 5 + [_F] * 9 + [_P]
+        [_P] * 6 + [_I] * 3 + [_P] * 4 + [_I] * 5 + [_F] * 9 + [_P]
     ),
+    "brick_integrate_occupancy": [_I, _P, _P],
     "brick_integrate_fixed_launch": (
         [_P] * 3 + [_I] * 3 + [_P] * 3 + [_I] * 5 + [_F] * 9 + [_P]
     ),
@@ -105,8 +108,75 @@ def build(verbose: bool = False) -> Path:
         if verbose:
             print("\n".join(filter(None, log)))
         os.replace(out, lib)
+    (BUILD_DIR / PTXAS_LOG).write_text("\n".join(log))
     stamp.write_text(digest)
     return lib
+
+
+def resource_usage() -> dict:
+    """Each kernel's registers, static shared memory and spill bytes, as
+    ptxas reported them at the last build (``-Xptxas -v``), keyed by the
+    kernel's name with its template arguments, e.g.
+    ``brick_integrate_kernel<0,4>``."""
+    usage, name = {}, None
+    for line in (BUILD_DIR / PTXAS_LOG).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            usage[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            usage[name]["spill_stores"] = int(m.group(1))
+            usage[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            usage[name]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return usage
+
+
+def sass_counts(names=("brick_integrate_kernel", "active_mask_kernel")):
+    """Each built kernel's SASS instructions, from ``cuobjdump -sass`` of
+    the library: {name: {"instructions": n, "MUFU": n, "FCHK": n,
+    "BSSY": n}} for the kernels whose name starts with one of ``names``,
+    or None where the toolkit has no ``cuobjdump``. Static counts: every
+    instruction of the function once, cold paths included."""
+    nvcc = find_nvcc()
+    tool = Path(nvcc).with_name("cuobjdump") if nvcc else None
+    if tool is None or not tool.is_file():
+        return None
+    out = subprocess.run([str(tool), "-sass", str(BUILD_DIR / LIB_NAME)],
+                         capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for block in re.split(r"\n\s*Function : ", out)[1:]:
+        name = _kernel_name(block.split("\n", 1)[0].strip())
+        if not name.startswith(names):
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                         block)
+        counts[name] = {"instructions": len(ops),
+                        **{op: ops.count(op) for op in ("MUFU", "FCHK",
+                                                        "BSSY")}}
+    return counts
+
+
+def _kernel_name(mangled: str) -> str:
+    """``..._4cd9310922brick_integrate_kernelILb0ELi4EEEv...`` ->
+    ``brick_integrate_kernel<0,4>``: the kernel's name and its integer
+    and bool template arguments. A length prefix may follow other digits
+    (``...0922brick...``), so each tail of a digit run is tried."""
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group())):
+            end = m.end() + int(m.group()[i:])
+            ident = mangled[m.end():end]
+            if ident.endswith("_kernel"):
+                targs = re.match(r"I((?:L[a-z]+\d+E)+)E", mangled[end:])
+                args = re.findall(r"(\d+)E", targs.group(1)) if targs else []
+                return ident + (f"<{','.join(args)}>" if args else "")
+    return mangled
 
 
 def _run_all(cmds) -> list[str]:

@@ -124,6 +124,43 @@ def test_k2_plain_matches_pallas_interpret(scene):
     assert (np.asarray(bits_j) != 0).any()
 
 
+@pytest.mark.parametrize("n_frames", [1, 3, 8])
+@pytest.mark.parametrize("mip_cell", [8, 16, 32])
+def test_k2_plain_matches_pallas_interpret_at_cell(mip_cell, n_frames):
+    """K2's plain version against the interpreted TPU kernel at each mip
+    cell and frame count, on 128x256 frames (every cell divides them) seen
+    at fx 300, so that brick centres project left of or above the image:
+    negative pixel coordinates, which the CUDA kernel floors by an
+    arithmetic shift."""
+    depths, poses, K = make_sphere_depths(n_views=n_frames, H=128, W=256,
+                                          fx=300.0, fy=300.0)
+    w2c = torch.linalg.inv(torch.from_numpy(poses)).numpy()
+    dims, vox = (32, 32, 32), 0.3 / 31
+    bd = _brick_dims(dims)
+    occ0, occ1, binp = jb._build_depth_occupancy(jnp.asarray(depths), 1000.0,
+                                                 3.0, mip_cell)
+    assert occ0.shape == (n_frames, 128 // mip_cell, 256 // mip_cell)
+    fx, fy, cx, cy = K
+    # the brick centres' truncated pixel coordinates: some are <= -1
+    ids = torch.arange(bd[0] * bd[1] * bd[2])
+    c = torch.stack(tb._brick_centers(ids, bd, t(ORIGIN, torch.float32),
+                                      float(np.float32(vox))), 1).double()
+    cam = c @ torch.from_numpy(w2c[:, :3, :3]).double().transpose(1, 2) \
+        + torch.from_numpy(w2c[:, None, :3, 3]).double()
+    u = cam[..., 0] / cam[..., 2] * fx + cx
+    v = cam[..., 1] / cam[..., 2] * fy + cy
+    assert ((u <= -1) | (v <= -1)).any()
+    bits_j = jb.active_brick_bits_pallas(
+        bd, jnp.asarray(ORIGIN, jnp.float32), vox, 5.0 * vox, occ0, occ1,
+        binp, jnp.asarray(w2c), fx, fy, cx, cy, 3.0, mip_cell,
+        interpret=True)
+    bits_t = active_mask_reference(
+        bd, t(ORIGIN, torch.float32), vox, 5.0 * vox, t(occ0), t(occ1),
+        t(binp), t(w2c), *map(f32, K), mip_cell=mip_cell)
+    np.testing.assert_array_equal(bits_t.numpy(), np.asarray(bits_j))
+    assert (np.asarray(bits_j) != 0).any()
+
+
 def test_exact_frame_bits_dilated_bitexact(scene):
     occ0, occ1, binp = _mask_inputs(scene)
     bd = _brick_dims(scene["dims"])
@@ -249,6 +286,9 @@ def test_kernel_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="occ1"):
         active_mask((1, 1, 1), origin, 0.01, 0.05, occ, occ.float(), binp,
                     T, 1.0, 1.0, 0.0, 0.0)
+    with pytest.raises(ValueError, match="mip_cell"):
+        active_mask((1, 1, 1), origin, 0.01, 0.05, occ, occ, binp, T, 1.0,
+                    1.0, 0.0, 0.0, mip_cell=4)
     plane = torch.zeros((2, 8, 128))
     ids = torch.zeros(1, dtype=torch.int32)
     n = torch.ones(1, dtype=torch.int32)

@@ -26,8 +26,13 @@ from reconplan_tpu_torch.ops.kernels import (
     gather_probe,
     gather_probe_reference,
 )
+from reconplan_tpu_torch.ops.kernels.active_mask import MIP_CELLS
 from reconplan_tpu_torch.ops.kernels.brick_ablate import ARMS, footprint
-from reconplan_tpu_torch.ops.kernels.brick_integrate import _voxel_world
+from reconplan_tpu_torch.ops.kernels.brick_integrate import (
+    _project_voxels,
+    _voxel_world,
+    grid_size,
+)
 from reconplan_tpu_torch.ops.kernels.gather_probe import ARMS as PROBE_ARMS
 from reconplan_tpu_torch.parallel import (
     gather_brick_grid,
@@ -260,3 +265,169 @@ def test_probe_arm_matches_plain(card, arm, s0):
     torch.cuda.synchronize()
     assert gather_probe.launches[arm] == before + 1
     assert torch.equal(out, gather_probe_reference(arm, x, s0))
+
+
+# --- the persistent K1 and the per-(brick, frame) K2 at their edges -------
+
+WIDE_ORIGIN = (-0.4, -0.4, -0.4)
+WIDE_VOX = 0.8 / 127  # 128^3: 2048 bricks, many outside a 120x160 view
+
+
+def _k1_case(card, n_frames, bd, origin, vox, fb, with_color, seed=5):
+    """Bricks in a random order with the frame bits ``fb`` ((NB,) i32), a
+    random prior state, and frames of the 120x160 sphere orbit."""
+    depths, poses, K = make_frames(n_frames, H=120, W=160, fx=150.0,
+                                   fy=150.0)
+    d = torch.as_tensor(depths, device=card)
+    T = torch.linalg.inv(torch.as_tensor(poses, device=card)).contiguous()
+    intr = tuple(float(np.float32(v)) for v in K)
+    NB = bd[0] * bd[1] * bd[2]
+    gen = torch.Generator(device=card).manual_seed(seed)
+    ids = torch.randperm(NB, generator=gen, device=card).int()
+    planes = [
+        torch.rand((NB + 1, 8, 128), generator=gen, device=card) * 2 - 1,
+        torch.randint(0, 5, (NB + 1, 8, 128), generator=gen,
+                      device=card).float(),
+        torch.randint(0, 1 << 24, (NB + 1, 8, 128), generator=gen,
+                      dtype=torch.int32, device=card) if with_color else None,
+    ]
+    colors = (torch.randint(0, 1 << 24, d.shape, generator=gen,
+                            dtype=torch.int32, device=card)
+              if with_color else None)
+    org = torch.tensor(origin, dtype=torch.float32, device=card)
+    rest = [ids, fb.to(card), None, T, intr, d, colors, org, bd, vox,
+            5 * vox, 1000.0, 3.0, 64.0]
+    return planes, rest
+
+
+def _k1_matches_plain(planes, rest, n):
+    """K1 with live count ``n`` against its plain version: sdf within
+    1e-6, weight and rgb identical (bricks past n untouched by both)."""
+    rest = list(rest)
+    rest[2] = torch.tensor([n], dtype=torch.int32, device=planes[0].device)
+    out = [None if a is None else a.clone() for a in planes]
+    ref = [None if a is None else a.clone() for a in planes]
+    before = brick_integrate.launches
+    brick_integrate(*out, *rest)
+    torch.cuda.synchronize()
+    assert brick_integrate.launches == before + 1
+    brick_integrate_reference(*ref, *rest)
+    assert (out[0] - ref[0]).abs().max().item() <= 1e-6
+    assert torch.equal(out[1], ref[1])
+    if out[2] is not None:
+        assert torch.equal(out[2], ref[2])
+    return out
+
+
+def test_k1_live_counts_around_the_persistent_grid(card):
+    """n_live = 0, 1, the persistent grid, one past it, max_active and 5
+    past max_active (the kernel reads no id past len(ids)): every live
+    brick folded once, the rest untouched, twice in a row (the work
+    counter is back at zero after each launch)."""
+    bd = (16, 16, 8)
+    NB = bd[0] * bd[1] * bd[2]
+    gen = torch.Generator().manual_seed(6)
+    fb = torch.randint(0, 256, (NB,), generator=gen, dtype=torch.int32)
+    fb[::7] = 0  # bricks with no frame between live ones
+    planes, rest = _k1_case(card, 8, bd, WIDE_ORIGIN, WIDE_VOX, fb, False)
+    G = grid_size(False, card, NB)
+    assert 1 < G < NB
+    for n in (0, 1, G, G + 1, NB, NB + 5):
+        out = _k1_matches_plain(planes, rest, n)
+        if n == 0:
+            assert all(torch.equal(a, b) for a, b in zip(out[:2], planes))
+        _k1_matches_plain(planes, rest, n)
+    assert not torch.equal(out[1], planes[1])
+
+
+def test_k1_all_32_frame_bits(card):
+    bd = (8, 8, 4)
+    NB = bd[0] * bd[1] * bd[2]
+    fb = torch.full((NB,), -1, dtype=torch.int32)  # all 32 bits
+    planes, rest = _k1_case(card, 32, bd, ORIGIN, VOX, fb, False)
+    out = _k1_matches_plain(planes, rest, NB)
+    # each voxel a frame observes gains up to 32 frames of weight
+    assert (out[1] - planes[1]).max().item() > 8
+
+
+@pytest.mark.parametrize("with_color", [False, True])
+def test_k1_footprints_partly_outside_the_image(card, with_color):
+    bd = (16, 16, 8)
+    NB = bd[0] * bd[1] * bd[2]
+    n_frames = 4 if with_color else 8
+    fb = torch.full((NB,), (1 << n_frames) - 1, dtype=torch.int32)
+    planes, rest = _k1_case(card, n_frames, bd, WIDE_ORIGIN, WIDE_VOX, fb,
+                            with_color)
+    ids, T, intr, d, org = rest[0], rest[3], rest[4], rest[5], rest[7]
+    wx, wy, wz = _voxel_world(ids, bd, org, WIDE_VOX)
+    _, _, _, in_img, _ = _project_voxels(T[0].reshape(16), wx, wy, wz, intr,
+                                         *d.shape[1:])
+    share = in_img.float().mean(dim=1)
+    assert ((share > 0) & (share < 1)).sum().item() > 10
+    _k1_matches_plain(planes, rest, NB)
+
+
+def test_k1_on_two_streams_at_once(card):
+    """Two launches on two streams, neither waiting for the other, each
+    equal to its plain version: each stream takes bricks from its own
+    work counter."""
+    bd = (16, 16, 8)
+    NB = bd[0] * bd[1] * bd[2]
+    fb = torch.randint(0, 256, (NB,), generator=torch.Generator()
+                       .manual_seed(7), dtype=torch.int32)
+    cases = [_k1_case(card, 8, bd, WIDE_ORIGIN, WIDE_VOX, fb, False,
+                      seed=s) for s in (8, 9)]
+    outs, refs = [], []
+    for planes, rest in cases:
+        rest[2] = torch.tensor([NB - 3], dtype=torch.int32, device=card)
+        outs.append([a.clone() for a in planes[:2]])
+        refs.append([a.clone() for a in planes[:2]])
+        brick_integrate_reference(*refs[-1], None, *rest)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(card) for _ in cases]
+    for _ in range(3):
+        for stream, out, (_, rest) in zip(streams, outs, cases):
+            with torch.cuda.stream(stream):
+                brick_integrate(*out, None, *rest)
+        torch.cuda.synchronize()
+        for out, ref, (_, rest) in zip(outs, refs, cases):
+            assert (out[0] - ref[0]).abs().max().item() <= 1e-6
+            assert torch.equal(out[1], ref[1])
+            brick_integrate_reference(*ref, None, *rest)
+
+
+@pytest.mark.parametrize("mip_cell", MIP_CELLS)
+@pytest.mark.parametrize("n_frames", [1, 3, 8, 32])
+def test_k2_frame_counts_and_cells(card, n_frames, mip_cell):
+    """K2 at F frames (a brick's frame groups padded to a power of two on
+    a warp's lanes) and each mip cell, with brick centres left of and
+    above the image."""
+    depths, poses, K = make_frames(n_frames, H=128, W=256, fx=300.0,
+                                   fy=300.0)
+    d = torch.as_tensor(depths, device=card)
+    T = torch.linalg.inv(torch.as_tensor(poses, device=card)).contiguous()
+    intr = tuple(float(np.float32(v)) for v in K)
+    bd = (16, 16, 8)
+    origin = torch.tensor(WIDE_ORIGIN, dtype=torch.float32, device=card)
+    ids = torch.arange(bd[0] * bd[1] * bd[2], device=card)
+    x, y, z = tb._project(T[0], *tb._brick_centers(ids, bd, origin,
+                                                   WIDE_VOX))
+    u, v = x / z * intr[0] + intr[2], y / z * intr[1] + intr[3]
+    assert (((u <= -1) | (v <= -1)) & (z > 0)).any()
+    occ0, occ1, binp = tb._build_depth_occupancy(d, 1000.0, 3.0, mip_cell)
+    args = (bd, origin, WIDE_VOX, 5 * WIDE_VOX, occ0, occ1, binp, T, *intr)
+    before = active_mask.launches
+    bits = active_mask(*args, mip_cell=mip_cell)
+    torch.cuda.synchronize()
+    assert active_mask.launches == before + 1
+    assert torch.equal(bits, active_mask_reference(*args, mip_cell=mip_cell))
+    assert (bits != 0).any()
+
+
+def test_k2_wrapper_refuses_other_cells(chunk):
+    occ0, occ1, binp = tb._build_depth_occupancy(chunk["d"], 1000.0, 3.0, 8)
+    before = active_mask.launches
+    with pytest.raises(ValueError, match="mip_cell"):
+        active_mask((8, 8, 4), chunk["origin"], VOX, 5 * VOX, occ0, occ1,
+                    binp, chunk["T"], *chunk["intr"], mip_cell=4)
+    assert active_mask.launches == before
