@@ -5,16 +5,19 @@
 Phases (each prints a line; any failure raises and the exit code is not 0):
   1. device   require a CUDA card; print nvidia-smi's name and power limit
   2. build    compile the CUDA kernels from reconplan_tpu_torch/csrc; print
-              ptxas's registers, shared memory and spills of the K1 and K2
-              kernels and the occupancy query's blocks per SM of K1 (depth
-              and color)
+              ptxas's registers, shared memory and spills of the K1, K2, K3
+              and K6 kernels, their SASS instruction counts (K6: the loads
+              and adds of its step loop) and the occupancy query's blocks
+              per SM of K1 (depth and color), K3 and K6
   3. kernels  K2, K1 and K3 against their plain PyTorch versions on the
               card, at the bench shapes (512^3, one 8-frame chunk of the
               bench scene with the real ids / fbits / live count of the mask
               pipeline; K1 again with color on a 4-frame chunk; K3 with the
-              host-compacted ids of the chunk padded to 512). Each gets its
-              device time per launch, K1 beside its first design (the
-              ablation arm `full`, in turns: old, new, new, old)
+              host-compacted ids of the chunk padded to 512, and again
+              padded to 4096 and to 8192 as the sharded path pads, the
+              padding's share of the time). Each gets its device time per
+              launch, K1 beside its first design (the ablation arm `full`,
+              in turns: old, new, new, old)
   4. check    the brick path against the dense engine on a small input
   5. bench    integrate_frames_bricked_device, 32 frames of 640x480 at 512^3
   6. banana   SplatCamera orbit of the YCB banana -> FusionPipeline(brick,
@@ -35,7 +38,9 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
               line is printed on a line of its own
  12. probe    reconplan_tpu_torch.benchmarks.probe_sublane_ops: the four
               microprobe arms (K6) at s0 in {0, 5}, bit-identical to their
-              plain versions, with times
+              plain versions, with times; each arm's device time at 2,048
+              and 4,096 steps beside the library call's, at other grids
+              (blocks an SM), and the time of one step
 Launch counters are zeroed just before phase 5 and read after phase 5 (one
 bench batch) and after phase 6 (K1 and K2), zeroed before and read after
 each of phases 7 and 8 (K3), 11 (every ablation arm) and 12 (every probe
@@ -67,7 +72,8 @@ The line before the last is a JSON summary of the kernels. For each:
                   the tools' kernels K4-K6).
   library_ms      one PyTorch call computing the same function, or null
                   where none does (K1-K5); for K6, x[s0:s0+L, :128].sum(0),
-                  which sums in another order: a yardstick of time only.
+                  which sums in another order and once, not 2,048 times: a
+                  yardstick of time only.
 K1's entry also has vs_old_design (the first design's device time over
 K1's, same call), K2's graph_floor_ms (a tiny torch op in a CUDA graph);
 the ablation and probe entries give each arm's numbers under "arms", and
@@ -208,9 +214,12 @@ def main():
         gather_probe)
     from reconplan_tpu_torch.ops.kernels.brick_ablate import ARMS
     from reconplan_tpu_torch.ops.kernels.brick_integrate import occupancy
+    from reconplan_tpu_torch.ops.kernels.brick_integrate_fixed import (
+        occupancy as k3_occupancy_query)
     from reconplan_tpu_torch.ops.kernels.gather_probe import (
         ARMS as PROBE_ARMS, GRID as PROBE_GRID, H as PROBE_H, LOOP,
-        W as PROBE_W)
+        W as PROBE_W, _launch as probe_launch, blocks_per_sm as probe_blocks,
+        grid_size as probe_grid_size)
     from reconplan_tpu_torch.parallel import (
         gather_brick_grid, make_sharded_brick_grid,
         sharded_integrate_frames_bricked)
@@ -229,15 +238,26 @@ def main():
     build.load_library()
     phase("build", f"{lib_path.name} in {time.perf_counter() - t0:.2f} s")
     for name, u in build.resource_usage().items():
-        if name.startswith(("brick_integrate_kernel", "active_mask_kernel")):
+        if name.startswith(("brick_integrate_kernel", "active_mask_kernel",
+                            "brick_integrate_fixed_kernel",
+                            "gather_probe_kernel")):
             phase("build", f"ptxas {name}: {u.get('registers')} registers, "
                   f"{u.get('smem_bytes')} B smem, spill stores "
                   f"{u.get('spill_stores')} B, loads {u.get('spill_loads')} B")
-    sass = build.sass_counts()
+    sass = build.sass_counts(("brick_integrate_kernel", "active_mask_kernel",
+                              "brick_integrate_fixed_kernel"))
     phase("build", "SASS instructions (MUFU, FCHK, BSSY) of each kernel: "
           + ("no cuobjdump" if sass is None else ", ".join(
               f"{k} {v['instructions']} ({v['MUFU']}, {v['FCHK']}, "
               f"{v['BSSY']})" for k, v in sass.items())))
+    # K6's step loop is its only loop: its loads and adds are the kernel's
+    probe_sass = build.sass_counts(("gather_probe_kernel",),
+                                   ("LDG", "LDS", "LDGSTS", "FADD"))
+    phase("build", "K6 SASS instructions (LDG, LDS, LDGSTS, FADD) of each "
+          "arm <arm,H,W,LOOP>: "
+          + ("no cuobjdump" if probe_sass is None else ", ".join(
+              f"{k} {v['instructions']} ({v['LDG']}, {v['LDS']}, "
+              f"{v['LDGSTS']}, {v['FADD']})" for k, v in probe_sass.items())))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     k1_occupancy = {}
     for name, color in (("depth", False), ("color", True)):
@@ -246,6 +266,16 @@ def main():
     phase("build", f"K1 occupancy query on {sms} SMs, blocks per SM x "
           "threads: " + ", ".join(f"{k} {v['blocks_per_sm']} x {v['threads']}"
                                   for k, v in k1_occupancy.items()))
+    k3_blocks, k3_threads = k3_occupancy_query(dev.index or 0)
+    k3_occupancy = {"blocks_per_sm": k3_blocks, "threads": k3_threads}
+    probe_occupancy = {arm: dict(zip(("most_blocks_per_sm", "blocks_per_sm"),
+                                     probe_blocks(arm, dev.index or 0)))
+                       for arm in PROBE_ARMS}
+    phase("build", f"K3 occupancy query: {k3_blocks} x {k3_threads} | K6 "
+          "blocks of 128 threads an SM, most by the occupancy query -> "
+          "taken: " + ", ".join(
+              f"{a} {v['most_blocks_per_sm']} -> {v['blocks_per_sm']}"
+              for a, v in probe_occupancy.items()))
 
     # --- 3. kernels against their plain versions at the bench shapes -------
     depths, poses, K = make_frames(32)
@@ -372,11 +402,36 @@ def main():
     k3_err = (planes[0] - ref[0]).abs().max().item()
     if k3_err > 1e-6 or not torch.equal(planes[1], ref[1]):
         raise AssertionError(f"K3 sdf err {k3_err} or weight differs")
+    k3_expect = tuple(a.clone() for a in ref)
     k3_run = lambda: brick_integrate_fixed(*planes, *k3_rest)  # noqa: E731
     k3 = {"max_abs_err": k3_err, "events_ms": events_ms(k3_run),
           "device_ms": graph_ms(k3_run),
           "plain_ms": events_ms(lambda: brick_integrate_fixed_reference(
-              *ref, *k3_rest), reps=3)}
+              *ref, *k3_rest), reps=3),
+          "real_bricks": n_k3, "padding": len(ids_np) - n_k3,
+          "grid": len(ids_np), "occupancy": k3_occupancy}
+    # the padding's share: the same real ids with no padding, and padded
+    # as the sharded path pads a shard (4,096, and phase 8's 8,192); the
+    # results must not change
+    k3["device_ms_by_padded_len"] = {}
+    for m_pad in (n_k3, 4096, 8192):
+        ids_m = torch.cat([ids[:n_k3], ids.new_full((m_pad - n_k3,), NB)])
+        out_m = (grid.sdf.clone(), grid.weight.clone())
+        rest_m = (ids_m,) + k3_rest[1:]
+        brick_integrate_fixed(*out_m, *rest_m)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out_m, k3_expect)):
+            raise AssertionError(f"K3 padded to {m_pad} differs")
+        k3["device_ms_by_padded_len"][m_pad] = graph_ms(
+            lambda o=out_m, r=rest_m: brick_integrate_fixed(*o, *r))
+    k3["registers"] = build.resource_usage()[
+        "brick_integrate_fixed_kernel"]["registers"]
+    phase("kernels", f"K3 {k3['registers']} registers (ptxas), grid "
+          f"{k3['grid']} blocks, one an id ({k3_blocks} "
+          f"an SM x {sms} SMs at once), {k3['real_bricks']} real ids + "
+          f"{k3['padding']} padding | device ms by padded length: "
+          + ", ".join(f"{m} {t:.5f}" for m, t in
+                      k3["device_ms_by_padded_len"].items()))
     # every frame of every real brick; the padding's blocks return at once
     k3_bf, k3_pix = k1_work(ids, torch.full_like(ids, 255), n_k3, T8, intr,
                             d8, grid.origin, bd, VOXEL)
@@ -388,7 +443,7 @@ def main():
           f"{len(ids_np)} | device {k3['device_ms']:.5f} ms a launch (bound "
           f"{k3['bound_ms']:.5f}, {k3['bound_by']}), events "
           f"{k3['events_ms']:.4f}, plain {k3['plain_ms']:.4f} ms")
-    del grid, planes, ref, scratch
+    del grid, planes, ref, scratch, k3_expect, out_m
 
     # --- 4. the whole brick path against the dense engine, small input -----
     sd, sp, sK = make_frames(8, H=120, W=160, fx=150.0, fy=150.0)
@@ -668,16 +723,48 @@ def main():
     x = torch.as_tensor(np.random.default_rng(probe_sublane_ops.SEED).random(
         (PROBE_H, PROBE_W), dtype=np.float32), device=dev)
     probe_arms = {}
+    s0_sweep = probe_sublane_ops.S0S[-1]
     for arm in PROBE_ARMS:
         L = PROBE_H if arm == "baseline" else LOOP
-        dev_ms, lib_ms = [], []
+        dev_ms, twice_ms, lib_ms = [], [], []
         for s0 in probe_sublane_ops.S0S:
             a = 0 if arm == "baseline" else min(s0, PROBE_H - LOOP)
             dev_ms.append(graph_ms(lambda s=s0, r=arm: gather_probe(r, x, s)))
+            twice_ms.append(graph_ms(lambda s=s0, r=arm: gather_probe(
+                r, x, s, steps=2 * PROBE_GRID)))
             lib_ms.append(graph_ms(lambda a=a, L=L: x[a:a + L, :128].sum(0)))
+            if not torch.equal(gather_probe(arm, x, s0, steps=2 * PROBE_GRID),
+                               gather_probe(arm, x, s0)):
+                raise AssertionError(f"probe arm {arm}: {2 * PROBE_GRID} "
+                                     "steps give another output")
+        # the same steps on other grids: blocks an SM -> device ms
+        by_blocks = {
+            b: graph_ms(lambda r=arm, b=b: probe_launch(
+                r, x, s0_sweep, PROBE_GRID, min(PROBE_GRID, b * sms)))
+            for b in (1, 2, 4, 8, 16)}
+        # a step's latency: 16 blocks, each alone on its SM, at 2,048 and
+        # 4,096 steps; the difference over the 128 steps a block
+        alone = [graph_ms(lambda r=arm, n=n: probe_launch(
+            r, x, s0_sweep, n, 16)) for n in (PROBE_GRID, 2 * PROBE_GRID)]
+        step_ns = (alone[1] - alone[0]) * 1e6 / (PROBE_GRID / 16)
+        grid_blocks = probe_grid_size(arm, dev, PROBE_GRID)
+        phase("probe", f"{arm}: grid {grid_blocks} blocks, "
+              f"{PROBE_GRID / grid_blocks:.2f} steps a block | device ms at "
+              f"{PROBE_GRID} steps {np.mean(dev_ms):.5f}, at "
+              f"{2 * PROBE_GRID} steps {np.mean(twice_ms):.5f} | library "
+              f"x[s0:s0+L, :128].sum(0) {np.mean(lib_ms):.5f} | device ms by "
+              f"blocks an SM at s0={s0_sweep}: "
+              + ", ".join(f"{b} {t:.5f}" for b, t in by_blocks.items())
+              + f" | one step of a block alone on its SM {step_ns:.1f} ns")
+        if not np.mean(twice_ms) > np.mean(dev_ms):
+            raise AssertionError(f"probe arm {arm}: the device time does not "
+                                 "grow with the step count")
         probe_arms[arm] = {
             "launches": probe_launches[arm], "ms": float(np.mean(dev_ms)),
             "device_ms": float(np.mean(dev_ms)),
+            "device_ms_twice_the_steps": float(np.mean(twice_ms)),
+            "grid": grid_blocks, "occupancy": probe_occupancy[arm],
+            "device_ms_by_blocks_per_sm": by_blocks, "step_ns": step_ns,
             "events_ms": probe["ms"][arm], "plain_ms": probe["plain_ms"][arm],
             "max_abs_err": probe["max_abs_err"][arm],
             "library_ms": float(np.mean(lib_ms)),
@@ -752,7 +839,10 @@ def main():
         entry("brick_integrate_fixed", "brick_integrate_fixed.cu",
               "reconplan_tpu/ops/tsdf_brick.py:503", k3,
               launches=launches["brick_integrate_fixed"],
-              launches_per_batch=per_batch["brick_integrate_fixed"]),
+              launches_per_batch=per_batch["brick_integrate_fixed"],
+              **{k: k3[k] for k in ("real_bricks", "padding", "grid",
+                                    "registers", "occupancy",
+                                    "device_ms_by_padded_len")}),
         ablate_entry("brick_ablate_k5", "benchmarks/profile_brick.py:75",
                      ("full", "no_fbits", "no_gather", "one_row", "rw_only")),
         ablate_entry("brick_ablate_k4", "benchmarks/profile_brick.py:320",

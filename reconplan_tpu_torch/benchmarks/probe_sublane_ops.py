@@ -8,7 +8,7 @@ window (a roll, a dynamic slice or per-row loads). The CUDA K1 has no
 window and reads depth by address; its ablation arm ``smem_window``
 stages one. This probe asks the same question at the TPU probe's shapes,
 ``H=32, W=256, LOOP=24`` and ``s0`` in {0, 5}, with the four arms of
-``ops/kernels/gather_probe.py`` on a grid of 2048 blocks. Each arm is
+``ops/kernels/gather_probe.py`` over 2048 steps. Each arm is
 first held against its plain version (bit-identical, or it raises), then
 timed with CUDA events over 20 calls, as is the plain version.
 

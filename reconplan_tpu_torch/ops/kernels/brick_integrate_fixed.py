@@ -7,8 +7,9 @@ the host-compacted path (``integrate_frames_bricked``) and the
 brick-sharded path (``parallel.brick``) dispatch. The JAX kernel carries
 the shard's global brick-id base and its real-brick count in ``meta[6]``
 and ``meta[7]``; here they are the ints ``id_base`` and ``n_real_local``.
-Ids at or past ``n_real_local`` are padding on the scratch row and are
-skipped. :func:`brick_integrate_fixed` launches the CUDA kernel for CUDA
+Ids at or past ``n_real_local`` are padding (the callers pad with the
+scratch row) and are skipped, wherever they stand in the list.
+:func:`brick_integrate_fixed` launches the CUDA kernel for CUDA
 tensors and calls :func:`brick_integrate_fixed_reference`, its plain
 PyTorch version, for CPU tensors. Both sample every in-image voxel; the
 TPU kernel's VMEM windows drop the outer voxels of very large footprints,
@@ -16,9 +17,18 @@ so the two may differ from it there and only there.
 
 The sdf / weight planes are updated in place (the JAX kernel aliases them
 as outputs).
+
+The kernel's grid is one block a position of ``ids``; a block whose id is
+padding returns at once (K1's persistent grid and work counter measured
+slower here, see the CUDA source). A launch takes at most ``MAX_FRAMES``
+frames; longer dispatches are split into launches in frame order, which
+folds the same frames in the same order.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -34,6 +44,9 @@ from reconplan_tpu_torch.ops.kernels.build import (
     load_library,
 )
 from reconplan_tpu_torch.utils.device import scalar_tensor
+
+# frames a launch (kMaxFrames in ``csrc/brick_integrate_fixed.cu``)
+MAX_FRAMES = 32
 
 
 def brick_integrate_fixed_reference(sdf_b, weight_b, ids, id_base,
@@ -70,6 +83,50 @@ def brick_integrate_fixed_reference(sdf_b, weight_b, ids, id_base,
     weight_b.view(-1, BRICK_VOXELS).index_copy_(0, rows, w)
 
 
+@functools.cache
+def occupancy(device_index):
+    """(blocks per SM, threads per block) of the kernel on the card, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; queried once."""
+    lib = load_library()
+    blocks, threads = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device_index):
+        err = lib.brick_integrate_fixed_occupancy(
+            ctypes.byref(blocks), ctypes.byref(threads))
+    check_launch("brick_integrate_fixed_occupancy", err)
+    return blocks.value, threads.value
+
+
+def _launch(sdf_b, weight_b, ids, id_base, n_real_local, T_w2c, intr,
+            depths, origin, brick_dims, voxel_size, trunc, depth_scale,
+            depth_max, max_weight):
+    """Launch the kernel, once for each ``MAX_FRAMES`` frames; returns the
+    number of launches."""
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    if not (f32(depth_scale) > 0 and f32(trunc) > 0):
+        raise ValueError("depth_scale and trunc must be > 0 (the kernel "
+                         "skips divides whose result that makes exact)")
+    dev = sdf_b.device
+    if dev.type != "cuda":
+        raise ValueError(f"brick_integrate_fixed: unsupported device {dev}")
+    lib = load_library()
+    F, Hd, Wd = depths.shape
+    _, bh, bw = brick_dims
+    M = ids.shape[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    starts = range(0, F, MAX_FRAMES)
+    for f0 in starts:
+        err = lib.brick_integrate_fixed_launch(
+            sdf_b.data_ptr(), weight_b.data_ptr(), ids.data_ptr(), M,
+            int(id_base), int(n_real_local), T_w2c[f0:].data_ptr(),
+            origin.data_ptr(), depths[f0:].data_ptr(),
+            min(MAX_FRAMES, F - f0), Hd, Wd, bh, bw, f32(voxel_size),
+            f32(trunc), *map(f32, intr), f32(depth_scale), f32(depth_max),
+            f32(max_weight), stream,
+        )
+        check_launch("brick_integrate_fixed_launch", err)
+    return len(starts)
+
+
 def brick_integrate_fixed(sdf_b, weight_b, ids, id_base, n_real_local,
                           T_w2c, intr, depths, origin, brick_dims,
                           voxel_size, trunc, depth_scale, depth_max,
@@ -81,9 +138,10 @@ def brick_integrate_fixed(sdf_b, weight_b, ids, id_base, n_real_local,
     ids padded with the scratch row; ``id_base`` (the shard's first global
     brick id) and ``n_real_local`` (its real-brick count) are ints.
     ``T_w2c`` (F, 4, 4) f32, ``intr`` (fx, fy, cx, cy) floats, ``depths``
-    (F, Hd, Wd) f32 raw. CUDA tensors launch the K3 kernel (counted in
-    ``brick_integrate_fixed.launches``); CPU tensors take the plain
-    version.
+    (F, Hd, Wd) f32 raw. CUDA tensors launch the K3 kernel, once for each
+    ``MAX_FRAMES`` frames (counted in ``brick_integrate_fixed.launches``),
+    which refuses ``depth_scale`` or ``trunc`` <= 0; CPU tensors take the
+    plain version.
     """
     dev = sdf_b.device
     NB1 = sdf_b.shape[0]
@@ -104,21 +162,7 @@ def brick_integrate_fixed(sdf_b, weight_b, ids, id_base, n_real_local,
     if dev.type == "cpu":
         brick_integrate_fixed_reference(*args)
         return
-    if dev.type != "cuda":
-        raise ValueError(f"brick_integrate_fixed: unsupported device {dev}")
-    lib = load_library()
-    _, bh, bw = brick_dims
-    f32 = lambda v: float(np.float32(v))  # noqa: E731
-    err = lib.brick_integrate_fixed_launch(
-        sdf_b.data_ptr(), weight_b.data_ptr(), ids.data_ptr(), M,
-        int(id_base), int(n_real_local), T_w2c.data_ptr(),
-        origin.data_ptr(), depths.data_ptr(), F, Hd, Wd, bh, bw,
-        f32(voxel_size), f32(trunc), *map(f32, intr), f32(depth_scale),
-        f32(depth_max), f32(max_weight),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    check_launch("brick_integrate_fixed_launch", err)
-    brick_integrate_fixed.launches += 1
+    brick_integrate_fixed.launches += _launch(*args)
 
 
 brick_integrate_fixed.launches = 0

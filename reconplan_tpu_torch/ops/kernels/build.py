@@ -48,10 +48,12 @@ _SIGNATURES = {
     "brick_integrate_fixed_launch": (
         [_P] * 3 + [_I] * 3 + [_P] * 3 + [_I] * 5 + [_F] * 9 + [_P]
     ),
+    "brick_integrate_fixed_occupancy": [_P, _P],
     "brick_ablate_launch": (
         [_I] + [_P] * 5 + [_I] + [_P] * 3 + [_I] * 5 + [_F] * 9 + [_P]
     ),
-    "gather_probe_launch": [_I] + [_P] * 2 + [_I] * 5 + [_P],
+    "gather_probe_launch": [_I] + [_P] * 2 + [_I] * 6 + [_P],
+    "gather_probe_occupancy": [_I, _P, _P],
 }
 
 
@@ -138,12 +140,14 @@ def resource_usage() -> dict:
     return usage
 
 
-def sass_counts(names=("brick_integrate_kernel", "active_mask_kernel")):
+def sass_counts(names=("brick_integrate_kernel", "active_mask_kernel"),
+                opcodes=("MUFU", "FCHK", "BSSY")):
     """Each built kernel's SASS instructions, from ``cuobjdump -sass`` of
     the library: {name: {"instructions": n, "MUFU": n, "FCHK": n,
-    "BSSY": n}} for the kernels whose name starts with one of ``names``,
-    or None where the toolkit has no ``cuobjdump``. Static counts: every
-    instruction of the function once, cold paths included."""
+    "BSSY": n}} (a count for each of ``opcodes``) for the kernels whose
+    name starts with one of ``names``, or None where the toolkit has no
+    ``cuobjdump``. Static counts: every instruction of the function once,
+    cold paths included."""
     nvcc = find_nvcc()
     tool = Path(nvcc).with_name("cuobjdump") if nvcc else None
     if tool is None or not tool.is_file():
@@ -158,8 +162,7 @@ def sass_counts(names=("brick_integrate_kernel", "active_mask_kernel")):
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
                          block)
         counts[name] = {"instructions": len(ops),
-                        **{op: ops.count(op) for op in ("MUFU", "FCHK",
-                                                        "BSSY")}}
+                        **{op: ops.count(op) for op in opcodes}}
     return counts
 
 

@@ -15,7 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from reconplan_tpu_torch.utils.device import scalar_tensor
+from reconplan_tpu_torch.utils.device import resolve_device, scalar_tensor
 
 
 class TSDFGrid(NamedTuple):
@@ -45,10 +45,12 @@ class TSDFGrid(NamedTuple):
 
 
 def make_grid(dims, origin, voxel_size, trunc=None, with_color=False,
-              device="cpu") -> TSDFGrid:
+              device=None) -> TSDFGrid:
     """Allocate an empty grid. ``dims`` = (D, H, W) voxels; ``origin`` is
     the world position of the (0,0,0) voxel center; ``trunc`` defaults to
-    5 voxels."""
+    5 voxels. ``device`` defaults to the card (``"cpu"`` asks for the
+    CPU)."""
+    device = resolve_device(device)
     D, H, W = dims
     if trunc is None:
         trunc = 5.0 * voxel_size
@@ -64,9 +66,10 @@ def make_grid(dims, origin, voxel_size, trunc=None, with_color=False,
 
 
 def tsdf_grid_from_numpy(sdf, weight, color, origin, voxel_size, trunc,
-                         device="cpu") -> TSDFGrid:
+                         device=None) -> TSDFGrid:
     """A grid from numpy arrays (e.g. a JAX ``TSDFGrid`` taken with
-    ``np.asarray`` field by field)."""
+    ``np.asarray`` field by field), on ``device`` (default: the card)."""
+    device = resolve_device(device)
     f32 = dict(dtype=torch.float32, device=device)
     return TSDFGrid(
         sdf=torch.as_tensor(np.array(sdf), **f32),

@@ -37,7 +37,7 @@ from reconplan_tpu_torch.ops.kernels.brick_integrate import brick_integrate
 from reconplan_tpu_torch.ops.kernels.brick_integrate_fixed import (
     brick_integrate_fixed,
 )
-from reconplan_tpu_torch.utils.device import scalar_tensor
+from reconplan_tpu_torch.utils.device import resolve_device, scalar_tensor
 
 class BrickGrid(NamedTuple):
     """Bricked TSDF volume. Logical voxel (z, y, x) lives at brick
@@ -58,7 +58,10 @@ class BrickGrid(NamedTuple):
 
 
 def make_brick_grid(dims, origin, voxel_size, trunc=None,
-                    with_color=False, device="cpu") -> BrickGrid:
+                    with_color=False, device=None) -> BrickGrid:
+    """An empty brick grid on ``device`` (default: the card; ``"cpu"`` asks
+    for the CPU)."""
+    device = resolve_device(device)
     D, H, W = dims
     if D % BRICK_Z or H % BRICK_Y or W % BRICK_X:
         raise ValueError(f"dims {dims} must be multiples of (8, 8, 16)")
@@ -79,10 +82,11 @@ def make_brick_grid(dims, origin, voxel_size, trunc=None,
 
 
 def brick_grid_from_numpy(sdf, weight, rgb, dims, origin, voxel_size, trunc,
-                          device="cpu") -> BrickGrid:
+                          device=None) -> BrickGrid:
     """A grid from bricked numpy planes (e.g. a JAX ``BrickGrid`` taken
     with ``np.asarray`` field by field), so both packages can start from
-    the same volume."""
+    the same volume, on ``device`` (default: the card)."""
+    device = resolve_device(device)
     as_t = lambda a, dt: torch.as_tensor(np.array(a), dtype=dt, device=device)  # noqa: E731
     return BrickGrid(
         sdf=as_t(sdf, torch.float32),

@@ -53,19 +53,20 @@ class ShardedBrickGrid(NamedTuple):
 
 
 def _default_devices():
-    """One shard per CUDA card, or one CPU shard without a card."""
-    n = torch.cuda.device_count()
-    if n:
-        return [torch.device("cuda", i) for i in range(n)]
-    return [torch.device("cpu")]
+    """One shard per CUDA card; raises when there is none."""
+    resolve_device(None)
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
 
 
 def make_sharded_brick_grid(dims, origin, voxel_size, devices=None,
                             trunc=None):
-    """An empty brick grid in ``len(devices)`` shards. Returns the
+    """An empty brick grid in ``len(devices)`` shards (default: one shard
+    per card; ``["cpu"] * n`` asks for CPU shards). Returns the
     ``(grid, nb_local)`` pair the other functions take."""
     devices = [resolve_device(d) for d in (devices or _default_devices())]
-    grid = tb.make_brick_grid(dims, origin, voxel_size, trunc)
+    grid = tb.make_brick_grid(dims, origin, voxel_size, trunc,
+                              device=devices[0])
     nb = grid.sdf.shape[0] - 1
     if nb % len(devices):
         raise ValueError(f"{nb} bricks not divisible by {len(devices)} "

@@ -14,16 +14,25 @@ import torch
 
 from reconplan_tpu_torch.io.meshio import sample_mesh_surface
 from reconplan_tpu_torch.ops.nn import knn, nearest_neighbor
+from reconplan_tpu_torch.utils.device import resolve_device
 
 
-def chamfer_distance(points_a, points_b, valid_a=None, valid_b=None):
+def _input_device(points, device):
+    """A tensor keeps its device; numpy input goes to ``device`` (``None``:
+    the card)."""
+    return points.device if torch.is_tensor(points) else resolve_device(device)
+
+
+def chamfer_distance(points_a, points_b, valid_a=None, valid_b=None,
+                     device=None):
     """Symmetric Chamfer distance between two point sets (meters).
 
     The average of the two directed mean nearest-neighbour distances.
     Returns (chamfer, directed_ab, directed_ba) as 0-d tensors on
-    ``points_a``'s device (the CPU for numpy input).
+    ``points_a``'s device (for numpy input: ``device``, by default the
+    card).
     """
-    device = points_a.device if torch.is_tensor(points_a) else "cpu"
+    device = _input_device(points_a, device)
     as_t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)  # noqa: E731
     points_a = as_t(points_a, torch.float32)
     points_b = as_t(points_b, torch.float32)
@@ -46,14 +55,15 @@ def chamfer_distance(points_a, points_b, valid_a=None, valid_b=None):
 
 
 def chamfer_to_mesh(points, mesh_vertices, mesh_faces,
-                    n_surface_samples=200_000, seed=0):
+                    n_surface_samples=200_000, seed=0, device=None):
     """Chamfer between a reconstructed point set and a ground-truth mesh,
     via dense area-weighted surface sampling of the mesh (numpy, seeded),
-    on ``points``' device. Returns (chamfer, directed_ab, directed_ba) as
-    floats."""
+    on ``points``' device (for numpy ``points``: ``device``, by default the
+    card). Returns (chamfer, directed_ab, directed_ba) as floats."""
     surf, _ = sample_mesh_surface(mesh_vertices, mesh_faces,
                                   n_surface_samples, seed=seed)
-    ch, ab, ba = chamfer_distance(points, surf.astype(np.float32))
+    ch, ab, ba = chamfer_distance(points, surf.astype(np.float32),
+                                  device=device)
     return float(ch), float(ab), float(ba)
 
 
@@ -97,7 +107,8 @@ def _closest_point_on_triangles(p, tri):
     return ((p - q) ** 2).sum(-1)
 
 
-def points_to_mesh_distance(points, triangles, k=16, row_chunk=2048):
+def points_to_mesh_distance(points, triangles, k=16, row_chunk=2048,
+                            device=None):
     """Exact distance (meters) from each query point to a triangle soup:
     the mesh is a continuous surface here, not a point sample, so this
     direction has no sampling floor and sees missing surface.
@@ -106,9 +117,10 @@ def points_to_mesh_distance(points, triangles, k=16, row_chunk=2048):
     (:func:`~reconplan_tpu_torch.ops.nn.knn`); each point's distance is
     the least exact point-triangle distance among them. ``points`` (Q, 3)
     and ``triangles`` (T, 3, 3) as tensors or numpy; returns a (Q,) f32
-    tensor on ``points``' device (the CPU for numpy input).
+    tensor on ``points``' device (for numpy input: ``device``, by default
+    the card).
     """
-    device = points.device if torch.is_tensor(points) else "cpu"
+    device = _input_device(points, device)
     points = torch.as_tensor(points, dtype=torch.float32, device=device)
     triangles = torch.as_tensor(triangles, dtype=torch.float32,
                                 device=device)

@@ -28,17 +28,18 @@ def scalar_tensor(value, device) -> torch.Tensor:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> the first CUDA card if one is present, else the CPU.
+    """``None`` -> the CUDA card; any other request as given.
 
-    An explicit CUDA request with no CUDA device raises: a run that asked
-    for the card never silently lands on the CPU.
+    The card is the default device of every entry point. With no CUDA
+    device, ``None`` and an explicit CUDA request both raise: a run never
+    silently lands on the CPU. Pass ``device="cpu"`` to ask for the CPU.
     """
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
+        asked = "no device given" if device is None else f"device {device!r}"
         raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() is "
-            "False"
+            f"{asked}: the default device is the cuda card, but "
+            "torch.cuda.is_available() is False; pass device=\"cpu\" to run "
+            "on the CPU"
         )
     return dev

@@ -150,7 +150,7 @@ def _compare(port, ref, ties, label):
 def _port(scene, arm):
     g = tb.brick_grid_from_numpy(scene["start"]["sdf"],
                                  scene["start"]["weight"], None, DIMS,
-                                 ORIGIN, VOX, TRUNC)
+                                 ORIGIN, VOX, TRUNC, device="cpu")
     brick_ablate_reference(arm, g.sdf, g.weight, *scene["args"])
     return g.sdf.numpy(), g.weight.numpy()
 

@@ -78,7 +78,8 @@ def test_color_plane_and_numpy_roundtrip_match_jax():
     gj = gj._replace(rgb=jnp.asarray(rgb))
     gt = tb.brick_grid_from_numpy(
         np.asarray(gj.sdf), np.asarray(gj.weight), np.asarray(gj.rgb),
-        gj.dims, np.asarray(gj.origin), gj.voxel_size, gj.trunc)
+        gj.dims, np.asarray(gj.origin), gj.voxel_size, gj.trunc,
+        device="cpu")
     np.testing.assert_array_equal(tb.to_dense_color(gt).numpy(),
                                   np.asarray(jb.to_dense_color(gj)))
     back = tb.brick_grid_to_numpy(gt)
@@ -211,7 +212,7 @@ def test_device_path_matches_jax_dense(scene):
     free-space (+1) observations beyond a frame's band by design."""
     d, p, K, dims, vox = (scene[k] for k in ("depths", "poses", "K", "dims",
                                               "vox"))
-    g = tb.make_brick_grid(dims, ORIGIN, vox)
+    g = tb.make_brick_grid(dims, ORIGIN, vox, device="cpu")
     g, n_active = tb.integrate_frames_bricked_device(g, d, p, *K)
     assert int(n_active) > 0
     dense = _dense_reference(d, p, K, dims, vox)
@@ -235,7 +236,7 @@ def test_device_path_color_matches_jax_dense():
     colors[..., 1] = np.arange(H)[None, :, None] * 255 // H
     colors[..., 2] = 128
     dims, vox = (64, 64, 64), 0.3 / 63
-    g = tb.make_brick_grid(dims, ORIGIN, vox, with_color=True)
+    g = tb.make_brick_grid(dims, ORIGIN, vox, with_color=True, device="cpu")
     g, _ = tb.integrate_frames_bricked_device(g, depths, poses, *K,
                                               colors=colors)
     dense = _dense_reference(depths, poses, K, dims, vox, colors)
@@ -252,7 +253,7 @@ def test_fallback_mask_branch_matches_jax_dense():
     depths, poses, K = make_sphere_depths(n_views=3, H=100, W=250,
                                           fx=120.0, fy=120.0)
     dims, vox = (32, 32, 32), 0.3 / 31
-    g = tb.make_brick_grid(dims, ORIGIN, vox)
+    g = tb.make_brick_grid(dims, ORIGIN, vox, device="cpu")
     g, n_active = tb.integrate_frames_bricked_device(g, depths, poses, *K)
     assert int(n_active) > 0
     dense = _dense_reference(depths, poses, K, dims, vox)
@@ -265,9 +266,9 @@ def test_fallback_mask_branch_matches_jax_dense():
 def test_n_active_is_unclamped_and_cap_drops_bricks(scene):
     d, p, K, dims, vox = (scene[k] for k in ("depths", "poses", "K", "dims",
                                               "vox"))
-    full = tb.make_brick_grid(dims, ORIGIN, vox)
+    full = tb.make_brick_grid(dims, ORIGIN, vox, device="cpu")
     full, n_full = tb.integrate_frames_bricked_device(full, d, p, *K)
-    capped = tb.make_brick_grid(dims, ORIGIN, vox)
+    capped = tb.make_brick_grid(dims, ORIGIN, vox, device="cpu")
     capped, n_capped = tb.integrate_frames_bricked_device(
         capped, d, p, *K, max_active=4)
     # n_active counts the mask before the cap (the refine cap also shrinks

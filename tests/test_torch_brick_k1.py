@@ -84,7 +84,7 @@ def _compare(port, ref):
 
 
 def test_k1_depth_matches_pallas_kernel(orbit, jax_depth_states):
-    g = tb.make_brick_grid(DIMS, ORIGIN, VOX)
+    g = tb.make_brick_grid(DIMS, ORIGIN, VOX, device="cpu")
     g, _ = tb.integrate_frames_bricked_device(g, orbit["d0"], orbit["p0"],
                                               *orbit["K"])
     _compare(g, jax_depth_states[0])
@@ -95,7 +95,7 @@ def test_state_carries_from_jax_brick_grid(orbit, jax_depth_states):
     after_even, after_odd = jax_depth_states
     g = tb.brick_grid_from_numpy(
         after_even["sdf"], after_even["weight"], None, DIMS, ORIGIN, VOX,
-        TRUNC)
+        TRUNC, device="cpu")
     g, _ = tb.integrate_frames_bricked_device(g, orbit["d1"], orbit["p1"],
                                               *orbit["K"])
     _compare(g, after_odd)
@@ -107,7 +107,7 @@ def test_k1_color_matches_pallas_kernel(orbit):
     with pallas_tpu_interpret():
         _, ref = _jax_device(gj, orbit["d0"], orbit["p0"], orbit["K"],
                              orbit["c0"])
-    g = tb.make_brick_grid(DIMS, ORIGIN, VOX, with_color=True)
+    g = tb.make_brick_grid(DIMS, ORIGIN, VOX, with_color=True, device="cpu")
     g, _ = tb.integrate_frames_bricked_device(
         g, orbit["d0"], orbit["p0"], *orbit["K"], colors=orbit["c0"])
     both = _compare(g, ref)

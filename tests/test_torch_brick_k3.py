@@ -27,6 +27,9 @@ from reconplan_tpu_torch.ops.kernels import (
     brick_integrate_fixed,
     brick_integrate_fixed_reference,
 )
+from reconplan_tpu_torch.ops.kernels.brick_integrate_fixed import (
+    _launch as k3_launch,
+)
 from test_tsdf_marching import make_sphere_depths
 from torch_parity import f32, jax_eager, same_inverse, t
 
@@ -105,6 +108,44 @@ def test_k3_plain_matches_pallas_kernel(scene, case):
     np.testing.assert_array_equal(w_t.numpy()[untouched], w0[untouched])
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_k3_plain_padding_interleaved_ids_permuted(scene, case):
+    """Padding may stand anywhere in the list and the real ids in any
+    order: the plain version against the Pallas kernel on such a list, and
+    bit for bit against itself on the compacted, ascending list."""
+    id_base, n_real, _ = CASES[case]
+    mask = tb.active_brick_mask(
+        BD, t(ORIGIN, torch.float32), VOX, TRUNC, t(scene["depths"]),
+        t(scene["w2c"]), *map(f32, scene["K"])).numpy()
+    local = np.flatnonzero(mask[id_base:id_base + n_real]).astype(np.int32)
+    rng = np.random.default_rng(7)
+    ids = [n_real] * 3  # padding first
+    for bid in rng.permutation(local):
+        ids += [int(bid)] + [n_real] * int(rng.integers(0, 4))
+    ids = np.asarray(ids + [n_real] * (-len(ids) % 8), np.int32)
+    assert (ids[:-1] > ids[1:]).any() and ids[0] == n_real
+    sdf0, w0 = _prior_planes(n_real + 1, seed=3 + len(case))
+    meta = jnp.asarray([*ORIGIN, VOX, TRUNC, 64.0, id_base, n_real],
+                       jnp.float32)
+    sdf_j, w_j = jb._integrate_bricks(
+        jnp.asarray(sdf0), jnp.asarray(w0), jnp.asarray(ids), meta,
+        jnp.asarray(scene["w2c"].reshape(-1, 16)),
+        jnp.asarray(scene["K"], jnp.float32), jnp.asarray(scene["depths"]),
+        BD, 1000.0, 3.0, 64.0, interpret=True)
+    rest = (id_base, n_real, t(scene["w2c"]), tuple(map(f32, scene["K"])),
+            t(scene["depths"]), t(ORIGIN, torch.float32), BD, VOX, TRUNC,
+            1000.0, 3.0, 64.0)
+    sdf_t, w_t = t(sdf0), t(w0)
+    brick_integrate_fixed(sdf_t, w_t, t(ids), *rest)
+    _compare(sdf_t, w_t, sdf_j, w_j, 5000)
+    sdf_c, w_c = t(sdf0), t(w0)
+    brick_integrate_fixed(sdf_c, w_c, t(local), *rest)
+    assert torch.equal(sdf_t, sdf_c) and torch.equal(w_t, w_c)
+    untouched = np.setdiff1d(np.arange(n_real + 1), local)
+    np.testing.assert_array_equal(sdf_t.numpy()[untouched], sdf0[untouched])
+    np.testing.assert_array_equal(w_t.numpy()[untouched], w0[untouched])
+
+
 @pytest.mark.parametrize("dilate", [False, True])
 def test_integrate_frames_bricked_matches_jax(scene, dilate):
     d, p, K = scene["depths"], scene["poses"], scene["K"]
@@ -112,7 +153,7 @@ def test_integrate_frames_bricked_matches_jax(scene, dilate):
     with same_inverse():
         gj, n_j = jb.integrate_frames_bricked(
             gj, d, p, *K, dilate_active=dilate, interpret=True)
-    g = tb.make_brick_grid(DIMS, ORIGIN, VOX)
+    g = tb.make_brick_grid(DIMS, ORIGIN, VOX, device="cpu")
     before = brick_integrate_fixed.launches
     g, n_t = tb.integrate_frames_bricked(g, d, p, *K, dilate_active=dilate)
     assert brick_integrate_fixed.launches == before  # CPU: plain version
@@ -126,7 +167,7 @@ def test_bricked_matches_dense_integration(scene):
     every frame into every active brick and samples every in-image voxel,
     so each voxel it observed equals the dense engine's."""
     d, p, K = scene["depths"][:2], scene["poses"][:2], scene["K"]
-    g = tb.make_brick_grid(DIMS, ORIGIN, VOX)
+    g = tb.make_brick_grid(DIMS, ORIGIN, VOX, device="cpu")
     g, n_active = tb.integrate_frames_bricked(g, d, p, *K,
                                               dilate_active=False)
     assert n_active > 0
@@ -149,7 +190,7 @@ def test_any_frame_size_and_chunking(scene):
     observed too."""
     d, p, _ = make_sphere_depths(n_views=4, H=48, W=64, fx=40.0, fy=40.0)
     K = (40.0, 40.0, 32.0, 24.0)
-    g = tb.make_brick_grid(DIMS, ORIGIN, VOX)
+    g = tb.make_brick_grid(DIMS, ORIGIN, VOX, device="cpu")
     g, n_active = tb.integrate_frames_bricked(g, d, p, *K,
                                               frames_per_dispatch=2,
                                               pad_multiple=8)
@@ -176,3 +217,26 @@ def test_k3_wrapper_checks_its_inputs():
     sdf, w = plane.clone(), plane.clone()
     brick_integrate_fixed(sdf, w, ids, 0, 4, T, *args)
     assert torch.equal(sdf, plane) and torch.equal(w, plane)
+
+
+@pytest.mark.parametrize("trunc,depth_scale", [
+    (0.0, 1000.0), (-0.05, 1000.0), (0.05, 0.0), (0.05, -1000.0),
+    (float("nan"), 1000.0)])
+def test_k3_launch_refuses_nonpositive_scale_and_trunc(trunc, depth_scale):
+    """The kernel skips divides that are exact only for depth_scale > 0 and
+    trunc > 0, so its launch refuses anything else, before it looks at the
+    device. The plain version, which skips nothing, takes them."""
+    plane = torch.zeros((5, 8, 128))
+    ids = torch.arange(4, dtype=torch.int32)
+    args = [plane.clone(), plane.clone(), ids, 0, 4, torch.eye(4)[None],
+            (1.0, 1.0, 0.0, 0.0), torch.ones((1, 4, 4)), torch.zeros(3),
+            (1, 2, 2), 0.01, trunc, depth_scale, 3.0, 64.0]
+    with pytest.raises(ValueError, match="must be > 0"):
+        k3_launch(*args)
+    args[11], args[12] = 0.05, 1000.0
+    with pytest.raises(ValueError, match="unsupported device cpu"):
+        k3_launch(*args)
+    before = brick_integrate_fixed.launches
+    args[11], args[12] = trunc, depth_scale
+    brick_integrate_fixed(*args)  # CPU tensors: the plain version
+    assert brick_integrate_fixed.launches == before

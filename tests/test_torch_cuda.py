@@ -33,7 +33,12 @@ from reconplan_tpu_torch.ops.kernels.brick_integrate import (
     _voxel_world,
     grid_size,
 )
+from reconplan_tpu_torch.ops.kernels.brick_integrate_fixed import (
+    MAX_FRAMES,
+    occupancy as k3_occupancy,
+)
 from reconplan_tpu_torch.ops.kernels.gather_probe import ARMS as PROBE_ARMS
+from reconplan_tpu_torch.ops.kernels.gather_probe import GRID as PROBE_GRID
 from reconplan_tpu_torch.parallel import (
     gather_brick_grid,
     make_sharded_brick_grid,
@@ -255,16 +260,35 @@ def test_ablate_tall_footprints(card, arm):
     _check_arm(arm, planes, rest)
 
 
-@pytest.mark.parametrize("s0", [0, 5])
-@pytest.mark.parametrize("arm", PROBE_ARMS)
+PROBE_CASES = [(arm, s0) for arm in PROBE_ARMS for s0 in (0, 5, 8)] + [
+    ("smem_roll", 31), ("smem_slice", 31)]
+
+
+@pytest.mark.parametrize("arm,s0", PROBE_CASES)
 def test_probe_arm_matches_plain(card, arm, s0):
+    """Bit for bit, and the same output at twice the steps and at one
+    step (a grid of one block)."""
     x = torch.rand((32, 256), generator=torch.Generator(device=card)
                    .manual_seed(3), device=card)
     before = gather_probe.launches[arm]
     out = gather_probe(arm, x, s0)
     torch.cuda.synchronize()
     assert gather_probe.launches[arm] == before + 1
-    assert torch.equal(out, gather_probe_reference(arm, x, s0))
+    ref = gather_probe_reference(arm, x, s0)
+    assert torch.equal(out, ref)
+    assert torch.equal(gather_probe(arm, x, s0, steps=2 * PROBE_GRID), ref)
+    assert torch.equal(gather_probe(arm, x, s0, steps=1), ref)
+
+
+def test_probe_wrapper_refuses_a_misaligned_window(card):
+    x = torch.rand(32 * 256 + 1, device=card)[1:].view(32, 256)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    before = dict(gather_probe.launches)
+    with pytest.raises(ValueError, match="aligned"):
+        gather_probe("smem_roll", x, 0)
+    with pytest.raises(ValueError, match="steps"):
+        gather_probe("baseline", x.clone(), 0, steps=0)
+    assert gather_probe.launches == before
 
 
 # --- the persistent K1 and the per-(brick, frame) K2 at their edges -------
@@ -431,3 +455,212 @@ def test_k2_wrapper_refuses_other_cells(chunk):
         active_mask((8, 8, 4), chunk["origin"], VOX, 5 * VOX, occ0, occ1,
                     binp, chunk["T"], *chunk["intr"], mip_cell=4)
     assert active_mask.launches == before
+
+
+# --- K3: padding anywhere, list lengths around one wave, streams ------------
+
+
+def _k3_case(card, M, real, n_frames=8, seed=11, weights=(0, 5)):
+    """``real`` (a list of local ids) placed in a list of ``M`` ids, the
+    rest padding, on the 128^3 grid's 2048 bricks; a random prior state;
+    frames of the 120x160 sphere orbit (many bricks partly or wholly
+    outside the image). Returns (planes, rest) with rest[0] the ids."""
+    depths, poses, K = make_frames(n_frames, H=120, W=160, fx=150.0,
+                                   fy=150.0)
+    d = torch.as_tensor(depths, device=card)
+    T = torch.linalg.inv(torch.as_tensor(poses, device=card)).contiguous()
+    intr = tuple(float(np.float32(v)) for v in K)
+    bd = (16, 16, 8)
+    NB = bd[0] * bd[1] * bd[2]
+    gen = torch.Generator(device=card).manual_seed(seed)
+    planes = [
+        torch.rand((NB + 1, 8, 128), generator=gen, device=card) * 2 - 1,
+        torch.randint(*weights, (NB + 1, 8, 128), generator=gen,
+                      device=card).float(),
+    ]
+    ids = torch.full((M,), NB, dtype=torch.int32)
+    ids[:len(real)] = torch.as_tensor(real, dtype=torch.int32)
+    org = torch.tensor(WIDE_ORIGIN, dtype=torch.float32, device=card)
+    rest = [ids.to(card), 0, NB, T, intr, d, org, bd, WIDE_VOX,
+            5 * WIDE_VOX, 1000.0, 3.0, 64.0]
+    return planes, rest
+
+
+def _k3_reference_planes(planes, rest):
+    ref = [a.clone() for a in planes]
+    brick_integrate_fixed_reference(*ref, *rest)
+    return ref
+
+
+def _same_bits(a, b):
+    """Equal bit for bit: the sign of a zero counts."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _k3_matches_plain(planes, rest, launches=1):
+    """K3 against its plain version, bit for bit; returns the output."""
+    out = [a.clone() for a in planes]
+    before = brick_integrate_fixed.launches
+    brick_integrate_fixed(*out, *rest)
+    torch.cuda.synchronize()
+    assert brick_integrate_fixed.launches == before + launches
+    ref = _k3_reference_planes(planes, rest)
+    assert _same_bits(out[0], ref[0]) and _same_bits(out[1], ref[1])
+    return out
+
+
+def _spread(n, NB=2048, seed=12):
+    """``n`` distinct brick ids in a random order."""
+    return torch.randperm(NB, generator=torch.Generator().manual_seed(seed)
+                          )[:n].tolist()
+
+
+def test_k3_list_lengths_around_one_wave_of_blocks(card):
+    """M of 1, the blocks the card holds at once, one more, and 4096 with 5
+    real ids: every real brick folded once, nothing else touched, twice in
+    a row on the same planes (a launch leaves no state behind)."""
+    blocks, _ = k3_occupancy(card.index or 0)
+    G = blocks * torch.cuda.get_device_properties(card).multi_processor_count
+    assert 1 < G < 2048
+    for M, n_real_ids in ((1, 1), (G, G), (G + 1, G + 1), (4096, 5)):
+        real = _spread(n_real_ids)
+        planes, rest = _k3_case(card, M, real)
+        out = _k3_matches_plain(planes, rest)
+        untouched = torch.ones(2049, dtype=torch.bool, device=card)
+        untouched[real] = False
+        assert torch.equal(out[0][untouched], planes[0][untouched])
+        assert torch.equal(out[1][untouched], planes[1][untouched])
+        if n_real_ids >= G:  # enough bricks that some see the sphere
+            assert not torch.equal(out[1], planes[1])
+        _k3_matches_plain(out, rest)
+
+
+def test_k3_no_real_brick(card):
+    """n_real_local = 0 (an empty shard) and an all-padding list: nothing
+    is written, and the next launch is right."""
+    planes, rest = _k3_case(card, 512, [])
+    out = _k3_matches_plain(planes, rest)
+    assert all(torch.equal(a, b) for a, b in zip(out, planes))
+    planes, rest = _k3_case(card, 512, _spread(40))
+    rest[2] = 0  # every id is padding now
+    out = _k3_matches_plain(planes, rest)
+    assert all(torch.equal(a, b) for a, b in zip(out, planes))
+    rest[2] = 2048
+    _k3_matches_plain(planes, rest)
+
+
+def test_k3_padding_interleaved_and_ids_descending(card):
+    """Padding between the real ids (alone, in runs shorter and longer
+    than a warp, at the front and at the end) and real ids in descending
+    order."""
+    real = sorted(_spread(300), reverse=True)
+    NB = 2048
+    ids, gen = [], np.random.default_rng(13)
+    ids += [NB] * 70  # a run longer than two warps at the front
+    for i, r in enumerate(real):
+        ids.append(r)
+        ids += [NB] * int(gen.choice([0, 0, 1, 3, 31, 32, 33, 100]))
+    ids += [NB] * 5
+    planes, rest = _k3_case(card, len(ids), [])
+    rest[0] = torch.as_tensor(ids, dtype=torch.int32, device=card)
+    out = _k3_matches_plain(planes, rest)
+    # the same bricks with no padding, ascending: the same planes
+    planes2, rest2 = _k3_case(card, len(real), sorted(real))
+    out2 = _k3_matches_plain(planes2, rest2)
+    assert torch.equal(out[0], out2[0]) and torch.equal(out[1], out2[1])
+    assert torch.equal(out[0][-1], planes[0][-1])  # the scratch row
+
+
+def test_k3_footprints_partly_outside_the_image(card):
+    real = list(range(2048))
+    planes, rest = _k3_case(card, 2048, real)
+    ids, T, intr, d, org, bd = (rest[0], rest[3], rest[4], rest[5], rest[6],
+                                rest[7])
+    wx, wy, wz = _voxel_world(ids, bd, org, WIDE_VOX)
+    _, _, _, in_img, _ = _project_voxels(T[0].reshape(16), wx, wy, wz, intr,
+                                         *d.shape[1:])
+    share = in_img.float().mean(dim=1)
+    assert ((share > 0) & (share < 1)).sum().item() > 10
+    assert (share == 0).sum().item() > 10  # bricks no voxel of which is seen
+    _k3_matches_plain(planes, rest)
+
+
+def test_k3_prior_weights_zero_one_and_max(card):
+    """A prior state with weights of 0, 1 and max_weight (the average's
+    divide runs only past a weight of 1, and the clamp holds the weight),
+    and sdf of both signs and both zeros."""
+    planes, rest = _k3_case(card, 2048, list(range(2048)))
+    gen = torch.Generator(device=card).manual_seed(14)
+    pick = torch.randint(0, 4, planes[1].shape, generator=gen, device=card)
+    planes[1] = torch.tensor([0.0, 1.0, 64.0, 63.0], device=card)[pick]
+    zeros = torch.randint(0, 8, planes[0].shape, generator=gen, device=card)
+    planes[0] = torch.where(zeros == 0, 0.0, planes[0])
+    planes[0] = torch.where(zeros == 1, -0.0, planes[0])
+    out = _k3_matches_plain(planes, rest)
+    assert out[1].max().item() == 64.0
+    assert (torch.signbit(out[0]) & (out[0] == 0)).any()  # a -0 came out
+
+
+def test_k3_more_frames_than_a_launch_takes(card):
+    """F > MAX_FRAMES is split into launches in frame order."""
+    F = MAX_FRAMES + 4
+    planes, rest = _k3_case(card, 512, _spread(300), n_frames=F)
+    _k3_matches_plain(planes, rest, launches=2)
+
+
+def test_k3_wrapper_refuses_nonpositive_scale_and_trunc(card):
+    planes, rest = _k3_case(card, 512, _spread(8))
+    before = brick_integrate_fixed.launches
+    for i, bad in ((9, 0.0), (9, -0.05), (10, 0.0), (10, -1000.0)):
+        args = list(rest)
+        args[i] = bad
+        with pytest.raises(ValueError, match="must be > 0"):
+            brick_integrate_fixed(*planes, *args)
+    assert brick_integrate_fixed.launches == before
+
+
+def test_k3_on_two_streams_and_beside_k1(card):
+    """Two K3 launches on two streams at once, then a K1 and a K3 launch at
+    once, neither waiting for the other: each equals its plain version
+    (K3 keeps no state between launches, and K1's counters are its own)."""
+    cases = [_k3_case(card, 4096, _spread(1500, seed=s), seed=s)
+             for s in (15, 16)]
+    outs = [[a.clone() for a in planes] for planes, _ in cases]
+    refs = [_k3_reference_planes(planes, rest) for planes, rest in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(card) for _ in cases]
+    for _ in range(3):
+        for stream, out, (_, rest) in zip(streams, outs, cases):
+            with torch.cuda.stream(stream):
+                brick_integrate_fixed(*out, *rest)
+        torch.cuda.synchronize()
+        for i, (out, ref) in enumerate(zip(outs, refs)):
+            assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+            refs[i] = _k3_reference_planes(ref, cases[i][1])
+    # K1 on one stream, K3 on the other
+    bd = (16, 16, 8)
+    NB = bd[0] * bd[1] * bd[2]
+    fb = torch.randint(0, 256, (NB,), generator=torch.Generator()
+                       .manual_seed(17), dtype=torch.int32)
+    k1_planes, k1_rest = _k1_case(card, 8, bd, WIDE_ORIGIN, WIDE_VOX, fb,
+                                  False)
+    k1_rest[2] = torch.tensor([NB - 3], dtype=torch.int32, device=card)
+    k1_out = [a.clone() for a in k1_planes[:2]]
+    k1_ref = [a.clone() for a in k1_planes[:2]]
+    brick_integrate_reference(*k1_ref, None, *k1_rest)
+    k3_planes, k3_rest = cases[0]
+    k3_out = [a.clone() for a in k3_planes]
+    k3_ref = _k3_reference_planes(k3_planes, k3_rest)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.cuda.stream(streams[0]):
+            brick_integrate(*k1_out, None, *k1_rest)
+        with torch.cuda.stream(streams[1]):
+            brick_integrate_fixed(*k3_out, *k3_rest)
+        torch.cuda.synchronize()
+        assert (k1_out[0] - k1_ref[0]).abs().max().item() <= 1e-6
+        assert torch.equal(k1_out[1], k1_ref[1])
+        assert torch.equal(k3_out[0], k3_ref[0])
+        assert torch.equal(k3_out[1], k3_ref[1])
+        brick_integrate_reference(*k1_ref, None, *k1_rest)
+        k3_ref = _k3_reference_planes(k3_ref, k3_rest)

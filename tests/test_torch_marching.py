@@ -26,7 +26,8 @@ def _both_grids(sdf, weight, vox, trunc=1.0):
     n = sdf.shape
     gj = jtsdf.make_grid(n, (-0.15,) * 3, vox, trunc=trunc)._replace(
         sdf=jnp.asarray(sdf), weight=jnp.asarray(weight))
-    gt = ttsdf.make_grid(n, (-0.15,) * 3, vox, trunc=trunc)._replace(
+    gt = ttsdf.make_grid(n, (-0.15,) * 3, vox, trunc=trunc,
+                         device="cpu")._replace(
         sdf=torch.as_tensor(sdf), weight=torch.as_tensor(weight))
     return gj, gt
 
@@ -70,7 +71,8 @@ def test_fused_sphere_same_triangles():
             jnp.asarray(depths), jnp.asarray(poses), *K)
         tj = jmc.marching_cubes(gj, weight_min=1.0)
     gt = ttsdf.integrate_frames(
-        ttsdf.make_grid((48,) * 3, (-0.15,) * 3, 0.3 / 47), depths, poses, *K)
+        ttsdf.make_grid((48,) * 3, (-0.15,) * 3, 0.3 / 47, device="cpu"),
+        depths, poses, *K)
     tt = tmc.marching_cubes(gt, weight_min=1.0).numpy()
     assert len(tt) == len(tj) > 100
     np.testing.assert_allclose(_sorted_tris(tt), _sorted_tris(tj),
@@ -78,7 +80,7 @@ def test_fused_sphere_same_triangles():
 
 
 def test_empty_grid_no_triangles():
-    g = ttsdf.make_grid((16, 16, 16), (0, 0, 0), 0.01)
+    g = ttsdf.make_grid((16, 16, 16), (0, 0, 0), 0.01, device="cpu")
     tris = tmc.marching_cubes(g)
     assert tris.shape == (0, 3, 3)
 

@@ -190,7 +190,8 @@ def test_points_to_mesh_distance_matches_jax():
     q /= np.linalg.norm(q, axis=1, keepdims=True)
     q = (q * (0.2 + 0.003 * rng.normal(size=(256, 1)))).astype(np.float32)
     dj = jmetrics.points_to_mesh_distance(q, tris, k=8, row_chunk=128)
-    dt = tmetrics.points_to_mesh_distance(q, tris, k=8, row_chunk=128)
+    dt = tmetrics.points_to_mesh_distance(q, tris, k=8, row_chunk=128,
+                                          device="cpu")
     assert dt.shape == (256,) and dt.dtype == torch.float32
     np.testing.assert_allclose(dt.numpy(), dj, rtol=1e-5, atol=1e-7)
     brute = torch.sqrt(tmetrics._closest_point_on_triangles(

@@ -55,7 +55,7 @@ def test_sharded_matches_single_grid_bitexact(scene, port_sharded):
     depths, poses, K = scene
     g_nbl, na = port_sharded
     sdf_s, w_s = tb.to_dense(gather_brick_grid(g_nbl))
-    bg = tb.make_brick_grid(DIMS, ORIGIN, VOX)
+    bg = tb.make_brick_grid(DIMS, ORIGIN, VOX, device="cpu")
     bg, na1 = tb.integrate_frames_bricked(bg, depths, poses, *K,
                                           dilate_active=False)
     sdf_1, w_1 = tb.to_dense(bg)

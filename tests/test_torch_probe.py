@@ -64,3 +64,15 @@ def test_probe_rejects_out_of_window_rows(window):
     # the clamp of lax.dynamic_slice: a late start reads the last rows
     np.testing.assert_array_equal(gather_probe("smem_slice", x, H - 1),
                                   gather_probe("smem_slice", x, H - LOOP))
+
+
+@pytest.mark.parametrize("arm", ARMS)
+def test_probe_step_count_leaves_the_output(window, arm):
+    """Every step computes the same sums, so the output is that of one
+    step whatever the count; a count below 1 is refused."""
+    x = torch.from_numpy(window)
+    once = gather_probe(arm, x, 5, steps=1)
+    assert torch.equal(gather_probe(arm, x, 5), once)
+    assert torch.equal(gather_probe(arm, x, 5, steps=4096), once)
+    with pytest.raises(ValueError, match="steps"):
+        gather_probe(arm, x, 5, steps=0)

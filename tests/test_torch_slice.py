@@ -136,8 +136,8 @@ from reconplan_tpu_torch.parallel import (
     gather_brick_grid, make_sharded_brick_grid,
     sharded_integrate_frames_bricked)
 g, n = tb.integrate_frames_bricked(
-    tb.make_brick_grid((32,) * 3, (-0.16,) * 3, 0.32 / 31), d, p, *K,
-    dilate_active=False)
+    tb.make_brick_grid((32,) * 3, (-0.16,) * 3, 0.32 / 31, device="cpu"),
+    d, p, *K, dilate_active=False)
 s, _ = sharded_integrate_frames_bricked(
     make_sharded_brick_grid((32,) * 3, (-0.16,) * 3, 0.32 / 31,
                             devices=["cpu"] * 2), d, p, *K)

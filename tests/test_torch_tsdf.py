@@ -11,7 +11,13 @@ import pytest
 import torch
 
 from reconplan_tpu.ops import tsdf as jtsdf
+from reconplan_tpu_torch.io import render as trender
+from reconplan_tpu_torch.io.frames import FrameSet
 from reconplan_tpu_torch.ops import tsdf as ttsdf
+from reconplan_tpu_torch.ops import tsdf_brick as tb
+from reconplan_tpu_torch.parallel import make_sharded_brick_grid
+from reconplan_tpu_torch.recon import fusion as tfusion
+from reconplan_tpu_torch.recon import metrics as tmetrics
 from reconplan_tpu_torch.utils import device as tdevice
 from test_tsdf_marching import make_sphere_depths
 from torch_parity import jax_eager
@@ -39,7 +45,8 @@ def _fuse_both(depths, poses, K, colors=None, dims=DIMS):
             gj, jnp.asarray(depths), jnp.asarray(poses), *K,
             colors=None if colors is None else jnp.asarray(colors),
         )
-    gt = ttsdf.make_grid(dims, ORIGIN, VOX, with_color=with_color)
+    gt = ttsdf.make_grid(dims, ORIGIN, VOX, with_color=with_color,
+                         device="cpu")
     gt = ttsdf.integrate_frames(gt, depths, poses, *K, colors=colors)
     return gj, gt
 
@@ -86,7 +93,8 @@ def test_state_carries_from_jax_grid(scene):
             gj, jnp.asarray(depths[:4]), jnp.asarray(poses[:4]), *K)
     gt = ttsdf.tsdf_grid_from_numpy(
         np.asarray(gj.sdf), np.asarray(gj.weight), np.asarray(gj.color),
-        np.asarray(gj.origin), float(gj.voxel_size), float(gj.trunc))
+        np.asarray(gj.origin), float(gj.voxel_size), float(gj.trunc),
+        device="cpu")
     back = ttsdf.tsdf_grid_to_numpy(gt)
     np.testing.assert_array_equal(back["sdf"], np.asarray(gj.sdf))
     assert back["trunc"] == float(gj.trunc)
@@ -99,11 +107,95 @@ def test_state_carries_from_jax_grid(scene):
 
 
 def test_resolve_device_never_substitutes_cpu(monkeypatch):
+    """The card is the default: with none present, no device and "cuda"
+    both raise (and say how to ask for the CPU), and "cpu" resolves."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         tdevice.resolve_device("cuda")
-    assert tdevice.resolve_device(None).type == "cpu"
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tdevice.resolve_device(None)
     assert tdevice.resolve_device("cpu").type == "cpu"
+    assert tdevice.resolve_device(torch.device("cpu")).type == "cpu"
+
+
+def test_resolve_device_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert tdevice.resolve_device(None) == torch.device("cuda")
+    assert tdevice.resolve_device("cuda:0") == torch.device("cuda", 0)
+    assert tdevice.resolve_device("cpu").type == "cpu"
+
+
+_SMALL = ((16, 16, 16), (0.0, 0.0, 0.0), 0.01)
+
+
+def _small_frames():
+    return FrameSet(depth=np.zeros((1, 8, 8), np.float32),
+                    poses=np.eye(4, dtype=np.float32)[None],
+                    intrinsics=(10.0, 10.0, 4.0, 4.0))
+
+
+_planes = lambda v, dt: np.full((5, 8, 128), v, dt)  # noqa: E731
+
+# every entry point that makes tensors from no tensor: (call without a
+# device, the same call on the CPU, where its result's device is found)
+ENTRY_POINTS = {
+    "make_grid": (lambda **kw: ttsdf.make_grid(*_SMALL, **kw),
+                  lambda g: g.sdf.device),
+    "tsdf_grid_from_numpy": (
+        lambda **kw: ttsdf.tsdf_grid_from_numpy(
+            np.ones((4, 4, 4)), np.zeros((4, 4, 4)), np.zeros((0, 0, 0, 3)),
+            (0, 0, 0), 0.01, 0.05, **kw),
+        lambda g: g.sdf.device),
+    "make_brick_grid": (lambda **kw: tb.make_brick_grid(*_SMALL, **kw),
+                        lambda g: g.sdf.device),
+    "brick_grid_from_numpy": (
+        lambda **kw: tb.brick_grid_from_numpy(
+            _planes(1, np.float32), _planes(0, np.float32), None,
+            (16, 16, 32), (0, 0, 0), 0.01, 0.05, **kw),
+        lambda g: g.sdf.device),
+    "make_sharded_brick_grid": (
+        lambda **kw: make_sharded_brick_grid(
+            *_SMALL, **({"devices": [kw["device"]] * 2} if kw else {})),
+        lambda g: g[0].sdf[0].device),
+    "FusionPipeline": (
+        lambda **kw: tfusion.FusionPipeline(
+            dims=_SMALL[0], origin=_SMALL[1], voxel_size=_SMALL[2], **kw),
+        lambda p: p.grid.sdf.device),
+    "FusionPipeline-dense": (
+        lambda **kw: tfusion.FusionPipeline(
+            dims=_SMALL[0], origin=_SMALL[1], voxel_size=_SMALL[2],
+            engine="dense", **kw),
+        lambda p: p.grid.sdf.device),
+    "fuse_frameset": (
+        lambda **kw: tfusion.fuse_frameset(
+            _small_frames(), dims=_SMALL[0], origin=_SMALL[1],
+            voxel_size=_SMALL[2], **kw),
+        lambda p: p.grid.sdf.device),
+    "SplatCamera": (lambda **kw: trender.SplatCamera(width=8, height=8, **kw),
+                    lambda c: c.device),
+    "chamfer_distance": (
+        lambda **kw: tmetrics.chamfer_distance(
+            np.zeros((4, 3), np.float32), np.ones((5, 3), np.float32),
+            **kw),
+        lambda r: r[0].device),
+    "points_to_mesh_distance": (
+        lambda **kw: tmetrics.points_to_mesh_distance(
+            np.zeros((4, 3), np.float32),
+            np.eye(3, dtype=np.float32)[None].repeat(2, 0), k=2, **kw),
+        lambda r: r.device),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(monkeypatch, name):
+    """With no card and no device given, each entry point raises and
+    builds nothing on the CPU; with ``device="cpu"`` it runs there."""
+    call, device_of = ENTRY_POINTS[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call()
+    assert device_of(call(device="cpu")).type == "cpu"
 
 
 def test_tf32_is_off_after_import():
