@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's fusion path once on one CUDA card.
+"""Drive the PyTorch/CUDA port once on one CUDA card: the fusion paths
+and the planning and capture half of the scan loop.
 
     python3 chip_smoke.py
 
@@ -16,8 +17,10 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
               host-compacted ids of the chunk padded to 512, and again
               padded to 4096 and to 8192 as the sharded path pads, the
               padding's share of the time). Each gets its device time per
-              launch, K1 beside its first design (the ablation arm `full`,
-              in turns: old, new, new, old)
+              launch, K1 beside its first design (the ablation arm
+              `pr1_full`) and its own code as the ablation library builds
+              it (the arm `full`), in turns: pr1_full, K1, full, full, K1,
+              pr1_full
   4. check    the brick path against the dense engine on a small input
   5. bench    integrate_frames_bricked_device, 32 frames of 640x480 at 512^3
   6. banana   SplatCamera orbit of the YCB banana -> FusionPipeline(brick,
@@ -30,9 +33,10 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
   9. banana   points_to_mesh_distance of the banana mesh's vertices to the
               GT triangles (mean <= 1 mm), and raycast_depth of the fused
               banana grid against the splat depth of an orbit view
- 10. ablate   the six ablation arms of K1 (K4/K5) against their plain
-              versions at phase 3's bench chunk, `full` and `smem_window`
-              also against K1 bit for bit, with device times
+ 10. ablate   the nine ablation arms of K1 (K4/K5) against their plain
+              versions at phase 3's bench chunk; `full`, `smem_window`,
+              `no_skips`, `static_stride` and `pr1_full` also against K1
+              bit for bit; with device times
  11. profile  reconplan_tpu_torch.benchmarks.profile_brick end to end: the
               bench scene's stage split and the ablation arms; its JSON
               line is printed on a line of its own
@@ -41,10 +45,24 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
               plain versions, with times; each arm's device time at 2,048
               and 4,096 steps beside the library call's, at other grids
               (blocks an SM), and the time of one step
+ 13. scan     the planning and capture half of the scan loop on the card:
+              load_problem("ur10", "rot_free") -> make_robot; FK of the 500
+              golden configurations against data/golden/wtraj.txt (position
+              < 5e-5 m, |quat . conj| > 1 - 1e-5); scan_arc of 64 waypoints
+              -> one seeded IK batch of 1,024 problems (16 restarts a
+              waypoint, max_iters=100); camera-link positions by FK of the
+              solved configurations; 12 pictures of the banana at 640x480
+              -> FusionPipeline(brick, 256^3, color) -> marching cubes ->
+              mean distance of the mesh's vertices to the ground-truth
+              triangles (finite and under two voxels). Prints the solved
+              waypoints of 64, the IK batch's ms (CUDA events; a profiler
+              run of a second batch gives its kernels' count and
+              device-busy ms), the FK's ms and the stage times
 Launch counters are zeroed just before phase 5 and read after phase 5 (one
 bench batch) and after phase 6 (K1 and K2), zeroed before and read after
-each of phases 7 and 8 (K3), 11 (every ablation arm) and 12 (every probe
-arm): each kernel must have been launched by its paths.
+each of phases 7 and 8 (K3), 11 (every ablation arm), 12 (every probe
+arm) and 13 (K1 and K2 again): each kernel must have been launched by its
+paths.
 
 The line before the last is a JSON summary of the kernels. For each:
   ms, device_ms   the kernel's device time per launch: 20 launches
@@ -75,7 +93,8 @@ The line before the last is a JSON summary of the kernels. For each:
                   which sums in another order and once, not 2,048 times: a
                   yardstick of time only.
 K1's entry also has vs_old_design (the first design's device time over
-K1's, same call), K2's graph_floor_ms (a tiny torch op in a CUDA graph);
+K1's, same call), arm_full_device_ms (the ablation arm `full` in the same
+turns) and launches_per_scan (phase 13, as K2's entry), K2's graph_floor_ms (a tiny torch op in a CUDA graph);
 the ablation and probe entries give each arm's numbers under "arms", and
 at the top
 those of K5's `full`, K4's `smem_window` and the probe's `baseline`. The
@@ -85,6 +104,7 @@ last line is the run's JSON status.
 import json
 import math
 import os
+import re
 import statistics
 import sys
 import time
@@ -96,10 +116,30 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 BANANA = os.path.join(REPO, "data/objects/011_banana/tsdf/nontextured.ply")
+# the scan loop's scene (phase 13): where the object stands, its
+# ground-truth mesh, and the D435's intrinsics
+OBJECT_POINT = [0.75, 0.75, 0.0]
+BANANA_MESH = os.path.join(
+    REPO, "data/objects/011_banana/poisson/nontextured.ply")
+D435 = dict(fx=615.6707153320312, fy=615.962158203125,
+            cx=326.0557861328125, cy=240.55592346191406)
+GOLDEN = os.path.join(REPO, "data/golden")
 
 
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
+
+
+def load_golden():
+    """The 500 golden UR10 configurations and their end-effector poses
+    (position, quaternion), each line ``t,[numbers]``."""
+    def rows(name):
+        with open(os.path.join(GOLDEN, name)) as f:
+            return np.array([[float(x) for x in re.findall(
+                r"-?\d+\.?\d*(?:[eE][+-]?\d+)?", line.split(",", 1)[1])]
+                for line in f])
+
+    return rows("ctraj.txt").astype(np.float32), rows("wtraj.txt")
 
 
 def events_ms(fn, reps=10):
@@ -212,7 +252,8 @@ def main():
         brick_ablate_reference, brick_integrate, brick_integrate_fixed,
         brick_integrate_fixed_reference, brick_integrate_reference, build,
         gather_probe)
-    from reconplan_tpu_torch.ops.kernels.brick_ablate import ARMS
+    from reconplan_tpu_torch.ops.kernels.brick_ablate import (
+        ARMS, occupancy as ablate_occupancy_query)
     from reconplan_tpu_torch.ops.kernels.brick_integrate import occupancy
     from reconplan_tpu_torch.ops.kernels.brick_integrate_fixed import (
         occupancy as k3_occupancy_query)
@@ -240,12 +281,13 @@ def main():
     for name, u in build.resource_usage().items():
         if name.startswith(("brick_integrate_kernel", "active_mask_kernel",
                             "brick_integrate_fixed_kernel",
-                            "gather_probe_kernel")):
+                            "gather_probe_kernel", "brick_ablate_")):
             phase("build", f"ptxas {name}: {u.get('registers')} registers, "
                   f"{u.get('smem_bytes')} B smem, spill stores "
                   f"{u.get('spill_stores')} B, loads {u.get('spill_loads')} B")
     sass = build.sass_counts(("brick_integrate_kernel", "active_mask_kernel",
-                              "brick_integrate_fixed_kernel"))
+                              "brick_integrate_fixed_kernel",
+                              "brick_ablate_kernel<0>"))
     phase("build", "SASS instructions (MUFU, FCHK, BSSY) of each kernel: "
           + ("no cuobjdump" if sass is None else ", ".join(
               f"{k} {v['instructions']} ({v['MUFU']}, {v['FCHK']}, "
@@ -266,6 +308,11 @@ def main():
     phase("build", f"K1 occupancy query on {sms} SMs, blocks per SM x "
           "threads: " + ", ".join(f"{k} {v['blocks_per_sm']} x {v['threads']}"
                                   for k, v in k1_occupancy.items()))
+    ablate_occupancy = {arm: ablate_occupancy_query(arm, dev.index or 0)[0]
+                        for arm in ARMS}
+    phase("build", "K4/K5 occupancy query, blocks per SM of each arm "
+          "<arm index>: " + ", ".join(f"{a} <{ARMS.index(a)}> {b}"
+                                      for a, b in ablate_occupancy.items()))
     k3_blocks, k3_threads = k3_occupancy_query(dev.index or 0)
     k3_occupancy = {"blocks_per_sm": k3_blocks, "threads": k3_threads}
     probe_occupancy = {arm: dict(zip(("most_blocks_per_sm", "blocks_per_sm"),
@@ -356,15 +403,18 @@ def main():
     k1, _, rest = k1_compare(8, None, None)
     # the depth-only call as brick_ablate takes it
     k1_depth_rest = rest[:6] + rest[7:]
-    # the first design (ablation arm `full`) and K1, in turns
+    # the first design (ablation arm `pr1_full`), K1, and K1's own code as
+    # the ablation library instantiates it (arm `full`), in turns
     scratch = (grid.sdf.clone(), grid.weight.clone())
-    old_run = lambda: brick_ablate("full", *scratch, *k1_depth_rest)  # noqa: E731
+    old_run = lambda: brick_ablate("pr1_full", *scratch, *k1_depth_rest)  # noqa: E731
     new_run = lambda: brick_integrate(*scratch, None, *rest)  # noqa: E731
-    turns = [graph_ms(old_run), graph_ms(new_run), graph_ms(new_run),
-             graph_ms(old_run)]
-    k1["old_design_device_ms"] = (turns[0] + turns[3]) / 2
+    arm_run = lambda: brick_ablate("full", *scratch, *k1_depth_rest)  # noqa: E731
+    turns = [graph_ms(old_run), graph_ms(new_run), graph_ms(arm_run),
+             graph_ms(arm_run), graph_ms(new_run), graph_ms(old_run)]
+    k1["old_design_device_ms"] = (turns[0] + turns[5]) / 2
     k1["vs_old_design"] = k1["old_design_device_ms"] / (
-        (turns[1] + turns[2]) / 2)
+        (turns[1] + turns[4]) / 2)
+    k1["arm_full_device_ms"] = (turns[2] + turns[3]) / 2
     k1["turns_ms"] = turns
     phase("kernels", f"K1 brick_integrate depth: sdf max err "
           f"{k1['max_abs_err']:.3g}, weight identical, {k1['live_bricks']} "
@@ -372,9 +422,10 @@ def main():
           f"{k1['device_ms']:.5f} ms a launch (bound {k1['bound_ms']:.5f}, "
           f"{k1['bound_by']}), events {k1['events_ms']:.4f}, plain "
           f"{k1['plain_ms']:.4f} ms")
-    phase("kernels", "K1 against its first design (`full`), in turns old, "
-          "new, new, old: " + ", ".join(f"{t:.5f}" for t in turns)
-          + f" ms -> {k1['vs_old_design']:.3f}x")
+    phase("kernels", "K1 against its first design (`pr1_full`) and the "
+          "ablation arm `full`, in turns pr1_full, K1, full, full, K1, "
+          "pr1_full: " + ", ".join(f"{t:.5f}" for t in turns)
+          + f" ms -> K1 {k1['vs_old_design']:.3f}x its first design")
     gen = torch.Generator(device=dev).manual_seed(0)
     colors = torch.randint(0, 1 << 24, (4,) + d_all.shape[1:], generator=gen,
                            dtype=torch.int32, device=dev)
@@ -642,16 +693,19 @@ def main():
             1000.0, 3.0, 64.0)
     k1_planes = (grid.sdf.clone(), grid.weight.clone())
     brick_integrate(*k1_planes, None, *rest[:6], None, *rest[6:])
-    # each arm's work on this chunk: `full` and `smem_window` do K1's,
-    # `one_row` and `no_gather` K1's operations on (almost) no depth,
+    # each arm's work on this chunk: `full`, `smem_window`, `no_skips`,
+    # `static_stride` and `pr1_full` do K1's (the function, whatever the
+    # arm spends on it), `one_row` and `no_gather` K1's operations on
+    # (almost) no depth,
     # `no_fbits` every frame of each live brick, `rw_only` the rows alone
     n_live = n.item()
     rows = n_live * 2 * 4096 * 2 + n_live * 8 + 8 * 64
     nf_bf, nf_pix = k1_work(ids, torch.full_like(fbits, 255), n_live, T8,
                             intr, d8, grid.origin, bd, VOXEL)
+    as_k1_arms = ("full", "smem_window", "no_skips", "static_stride",
+                  "pr1_full")
     arm_bound = {
-        "full": (k1["bound_ms"], k1["bound_by"]),
-        "smem_window": (k1["bound_ms"], k1["bound_by"]),
+        **{arm: (k1["bound_ms"], k1["bound_by"]) for arm in as_k1_arms},
         "one_row": bound(rows, k1["brick_frames"] * 1024 * K1_OPS),
         "no_gather": bound(rows, k1["brick_frames"] * 1024 * K1_OPS),
         "no_fbits": k1_bound(n_live, nf_bf, nf_pix, 2, 0, 8),
@@ -670,7 +724,7 @@ def main():
                                  "weight differs from its plain version")
         as_k1 = torch.equal(planes[0], k1_planes[0]) and torch.equal(
             planes[1], k1_planes[1])
-        if arm in ("full", "smem_window") and not as_k1:
+        if arm in as_k1_arms and not as_k1:
             raise AssertionError(f"ablation arm {arm} differs from K1")
         run = lambda a=arm, p=planes: brick_ablate(a, *p, *rest)  # noqa: E731
         ablate[arm] = {
@@ -783,6 +837,138 @@ def main():
           + ", ".join(f"{a} {v['library_ms']:.5f}"
                       for a, v in probe_arms.items()))
 
+    # --- 13. the planning and capture half of the scan loop --------------
+    from reconplan_tpu_torch.grr import scan_arc
+    from reconplan_tpu_torch.io.config import load_problem
+    from reconplan_tpu_torch.kin import fk_all, make_robot
+    from reconplan_tpu_torch.utils.profiling import StageTimer
+
+    active_mask.launches = 0
+    brick_integrate.launches = 0
+    timer = StageTimer()
+    with timer.stage("robot", fence=dev):
+        robot = make_robot(load_problem("ur10", "rot_free"))
+    n_geom = len(robot._spheres["self"][0]) + len(robot._spheres["ee"][0])
+    if not (robot.device.type == "cuda" and robot.rob.num_links == 18
+            and robot.num_joints == 6 and n_geom == 12
+            and robot._spheres["self"][1].shape[1:] == (32, 3)):
+        raise AssertionError("the UR10 is not the one the scan loop plans for")
+    ctraj, wtraj = load_golden()
+    pos, rot = robot.solve_fk_batch(ctraj)
+    pos, quat = pos[:, -1].cpu().numpy(), rot[:, -1].cpu().numpy()
+    fk_pos_err = np.linalg.norm(pos - wtraj[:, :3], axis=-1).max()
+    # the golden file stores the quaternion of R^T (the conjugate)
+    fk_dot = np.abs(np.sum(quat * [-1.0, -1.0, -1.0, 1.0] * wtraj[:, 3:7],
+                           axis=-1)).min()
+    if not (fk_pos_err < 5e-5 and fk_dot > 1 - 1e-5):
+        raise AssertionError(f"golden FK: position err {fk_pos_err} m, "
+                             f"min |quat . conj| {fk_dot}")
+    fk_ms = events_ms(lambda: robot.solve_fk_batch(ctraj))
+    arc = scan_arc(OBJECT_POINT, radius=0.3, height=0.15, num_points=64)
+    n_way, restarts = len(arc), 16
+    targets = np.repeat(arc[:, :3], restarts, axis=0)
+    seeds = robot.sample(n_way * restarts, rng=np.random.default_rng(0))
+    # the solver's first call pays for the library handles of its 6x6
+    # solves: a batch of two problems takes that out of the timed batch
+    robot.solve_ik_batch(targets[:2], seeds[:2], max_iters=2)
+    ik_events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with timer.stage("plan", fence=dev):
+        ik_events[0].record()
+        qf, okf = robot.solve_ik_batch(targets, seeds)
+        ik_events[1].record()
+    ik_ms = ik_events[0].elapsed_time(ik_events[1])
+    # the same batch again under the profiler: its kernels and their time
+    # on the card (the profiler slows the host, not the kernels)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as ik_prof:
+        robot.solve_ik_batch(targets, seeds)
+        torch.cuda.synchronize()
+    ik_kernels = [e for e in ik_prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    ik_busy_ms = sum(e.device_time_total for e in ik_kernels) / 1e3
+    del ik_prof
+    okf = okf.reshape(n_way, restarts)
+    solved = okf.any(dim=1)
+    first = okf.to(torch.int8).argmax(dim=1)
+    qs = qf.reshape(n_way, restarts, -1)[torch.arange(n_way, device=dev),
+                                         first][solved]
+    n_solved = int(solved.sum())
+    if n_solved < 56:  # every run so far solved 64 of 64
+        raise AssertionError(f"IK solved {n_solved} of {n_way} waypoints")
+    # every configuration called solved reaches its target by FK
+    reach = (robot.fk_point_batch(qs)[:, :3] - torch.as_tensor(
+        arc[:, :3], device=dev)[solved]).norm(dim=-1).max().item()
+    if not reach < 1e-3:
+        raise AssertionError(f"a solved configuration misses its waypoint "
+                             f"by {reach} m")
+    _, t_links = fk_all(robot.model, robot._full_config(qs))
+    cam_positions = t_links[:, robot.camera_link].cpu().numpy()
+    pick = np.linspace(0, len(qs) - 1, 12).astype(int)
+    with timer.stage("capture", fence=dev):
+        cam = SplatCamera(**D435, device=dev).add_mesh_file(
+            BANANA_MESH, translate=OBJECT_POINT)
+        shots = [cam.take_picture(cam_positions[i], OBJECT_POINT)
+                 for i in pick]
+    frames = FrameSet(depth=torch.stack([s[0] for s in shots]),
+                      color=torch.stack([s[1] for s in shots]),
+                      poses=np.stack([s[2] for s in shots]).astype(np.float32),
+                      depth_scale=1000.0, intrinsics=cam.intrinsics)
+    coverage = (frames.depth > 0).float().mean().item()
+    scan_dim = 256
+    scan_voxel = 0.3 / (scan_dim - 1)
+    with timer.stage("fuse", fence=dev):
+        scan_pipe = FusionPipeline(
+            dims=(scan_dim,) * 3,
+            origin=(OBJECT_POINT[0] - 0.15, OBJECT_POINT[1] - 0.15, -0.05),
+            voxel_size=scan_voxel, with_color=True, engine="brick",
+            device=dev)
+        scan_pipe.integrate(frames)
+    with timer.stage("extract", fence=dev):
+        scan_tris, scan_cols = scan_pipe.extract_mesh(with_colors=True)
+    per_scan = {"active_mask": active_mask.launches,
+                "brick_integrate": brick_integrate.launches}
+    if len(scan_tris) == 0:
+        raise AssertionError("the scan's mesh has no triangles")
+    with timer.stage("distance", fence=dev):
+        scan_gt_v, scan_gt_f = load_mesh(BANANA_MESH)
+        scan_gt = torch.as_tensor(
+            (scan_gt_v + np.asarray(OBJECT_POINT))[scan_gt_f],
+            dtype=torch.float32, device=dev)
+        mesh_to_gt = points_to_mesh_distance(
+            torch.unique(scan_tris.reshape(-1, 3), dim=0), scan_gt)
+        mesh_to_gt_mm = mesh_to_gt.mean().item() * 1e3
+    if not (torch.isfinite(scan_tris).all() and torch.isfinite(scan_cols).all()
+            and math.isfinite(mesh_to_gt_mm)
+            and mesh_to_gt_mm < 2 * scan_voxel * 1e3):
+        raise AssertionError(f"scan mesh -> ground truth {mesh_to_gt_mm} mm "
+                             f"(limit {2 * scan_voxel * 1e3} mm)")
+    for name, count in per_scan.items():
+        if count == 0:
+            raise AssertionError(f"the scan's fusion never launched {name}")
+        launches[name] += count
+    phase("scan", f"UR10 on {robot.device}: {robot.rob.num_links} links, "
+          f"{robot.num_joints} active joints, {n_geom} geometry links of 32 "
+          f"spheres | golden FK of {len(ctraj)} configs: position err "
+          f"{fk_pos_err:.3g} m, min |quat . conj| {fk_dot:.8f}, "
+          f"{fk_ms:.3f} ms a batch (events)")
+    phase("scan", f"IK: solved {n_solved} of {n_way} waypoints "
+          f"({int(okf.sum())} of {okf.numel()} restarts), worst FK miss "
+          f"{reach:.3g} m | batch of {okf.numel()}, max_iters=100: "
+          f"{ik_ms:.1f} ms (CUDA events) | under the profiler "
+          f"{len(ik_kernels)} kernels and copies, {ik_busy_ms:.1f} ms on "
+          f"the card: busy share {ik_busy_ms / ik_ms:.3f}")
+    phase("scan", f"12 pictures {cam.width}x{cam.height}, coverage "
+          f"{coverage:.3%} | {len(scan_tris)} triangles at {scan_dim}^3, "
+          f"voxel {scan_voxel * 1e3:.4f} mm | mesh -> ground truth mean "
+          f"{mesh_to_gt_mm:.4f} mm, max {mesh_to_gt.max().item() * 1e3:.4f} "
+          f"mm | K2 / K1 launches {per_scan['active_mask']} / "
+          f"{per_scan['brick_integrate']} | stages s (synchronised): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in timer.stages)
+          + f" | {card}")
+    del scan_pipe, frames, shots, cam
+
     for arm, count in {**ablate_launches, **probe_launches}.items():
         if count == 0:
             raise AssertionError(f"its tool never launched arm {arm}")
@@ -793,7 +979,8 @@ def main():
             raise AssertionError(f"main path never launched {name}")
     phase("launches", json.dumps(launches) + " | one bench batch "
           + json.dumps(per_batch) + " | one banana orbit "
-          + json.dumps(per_orbit))
+          + json.dumps(per_orbit) + " | one planned scan "
+          + json.dumps(per_scan))
 
     def entry(name, source, replaces, nums, **extra):
         """One kernel's line: its device time as ``ms``."""
@@ -813,6 +1000,7 @@ def main():
             launches=sum(ablate_launches[a] for a in arms),
             launches_per_batch=0,
             arms={a: {"launches": ablate_launches[a], **ablate[a],
+                      "blocks_per_sm": ablate_occupancy[a],
                       "library_ms": None} for a in arms})
 
     print(json.dumps({"kernels": [
@@ -821,16 +1009,19 @@ def main():
               launches=launches["active_mask"],
               launches_per_batch=per_batch["active_mask"],
               launches_per_orbit=per_orbit["active_mask"],
+              launches_per_scan=per_scan["active_mask"],
               graph_floor_ms=k2["graph_floor_ms"]),
         entry("brick_integrate", "brick_integrate.cu",
               "reconplan_tpu/ops/tsdf_brick.py:682", k1,
               launches=launches["brick_integrate"],
               launches_per_batch=per_batch["brick_integrate"],
               launches_per_orbit=per_orbit["brick_integrate"],
+              launches_per_scan=per_scan["brick_integrate"],
               live_bricks=k1["live_bricks"],
               brick_frames=k1["brick_frames"],
               vs_old_design=k1["vs_old_design"],
               old_design_device_ms=k1["old_design_device_ms"],
+              arm_full_device_ms=k1["arm_full_device_ms"],
               occupancy=k1_occupancy,
               color={k: k1c[k] for k in (
                   "device_ms", "events_ms", "plain_ms", "max_abs_err",
@@ -844,7 +1035,8 @@ def main():
                                     "registers", "occupancy",
                                     "device_ms_by_padded_len")}),
         ablate_entry("brick_ablate_k5", "benchmarks/profile_brick.py:75",
-                     ("full", "no_fbits", "no_gather", "one_row", "rw_only")),
+                     ("full", "no_fbits", "no_gather", "one_row", "rw_only",
+                      "no_skips", "static_stride", "pr1_full")),
         ablate_entry("brick_ablate_k4", "benchmarks/profile_brick.py:320",
                      ("smem_window",)),
         {**entry("gather_probe", "gather_probe.cu",

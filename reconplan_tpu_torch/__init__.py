@@ -7,19 +7,28 @@ functions (``(NB + 1, 8, 128)`` brick planes with the scratch row,
 ``depth_scale``). It imports ``torch`` and never ``jax`` or
 ``reconplan_tpu``; the few numpy helpers it needs are copied in.
 
-The three TPU kernels of the fusion stack are hand-written CUDA C++ for
+The six TPU kernels of the repository are hand-written CUDA C++ for
 ``sm_90a`` (``csrc/``), built with ``nvcc`` into ``_build/`` at first use
 (``ops/kernels/build.py``). Each wrapper runs its kernel on CUDA tensors
-and its plain PyTorch version on CPU tensors.
+and its plain PyTorch version on CPU tensors. Everything else is torch
+ops. Every entry point that makes tensors takes ``device=None``, which
+means the card (``utils/device.resolve_device``) and raises without one;
+``device="cpu"`` asks for the CPU.
 
 Subpackages
 -----------
-utils     device resolution
-io        mesh IO, frame sets, splat renderer
-ops       dense TSDF and raycast, brick TSDF, marching cubes, nearest
-          neighbours, kernels
-parallel  brick-sharded fusion over a list of devices
-recon     fusion pipeline, Chamfer and point-to-mesh metrics
+utils       device resolution, stage timer and profiler trace
+io          mesh IO, frame sets and feeds, problem configs, roadmap
+            checkpoints, splat renderer
+core        SE3 / quaternion maths, workspace sampling grids
+kin         .rob parser, kinematic chain (FK, Jacobian), batched DLS IK,
+            collision, the Robot protocol
+grr         Cartesian path generators (the scan arc)
+ops         dense TSDF and raycast, brick TSDF, marching cubes, nearest
+            neighbours, kernels
+parallel    brick-sharded fusion over a list of devices
+recon       fusion pipeline, Chamfer and point-to-mesh metrics
+benchmarks  the brick profiler and the sampling microprobe
 """
 
 import torch as _torch

@@ -86,6 +86,10 @@ TPU_ARMS = {
     "one_row": ["no_rowloop"],
     "rw_only": ["dma_only"],
     "smem_window": ["dmahbm2"],
+    # what the CUDA K1 alone is made of: no TPU arm asks these
+    "no_skips": [],
+    "static_stride": [],
+    "pr1_full": [],
 }
 _NO_ROLLS = "the CUDA K1 reads depth by address and has no window rolls"
 NULL_ARMS = {

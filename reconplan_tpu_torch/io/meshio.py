@@ -1,7 +1,7 @@
 """Mesh IO without Open3D: PLY/STL/OFF readers and surface sampling.
 
-A numpy copy of ``reconplan_tpu.io.meshio`` (``load_mesh`` and
-``sample_mesh_surface``): the port imports nothing from the JAX package,
+A numpy copy of ``reconplan_tpu.io.meshio`` (``load_mesh``, ``save_ply``
+and ``sample_mesh_surface``): the port imports nothing from the JAX package,
 whose ``__init__`` imports jax. Used for the YCB ground-truth meshes
 (``data/objects/011_banana``) that anchor the Chamfer checks, and as the
 input of the splat renderer (``io.render``).
@@ -139,6 +139,44 @@ def _load_off(path: str):
         verts = np.loadtxt(f, max_rows=nv)[:, :3]
         faces = np.loadtxt(f, max_rows=nf, dtype=np.int64)[:, 1:4]
     return verts, faces
+
+
+def _to_numpy(a):
+    """numpy view of an array or of a tensor on any device."""
+    return a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+
+
+def save_ply(path: str, triangles=None, vertices=None, faces=None,
+             colors=None):
+    """Write an ascii PLY from either a triangle soup (T, 3, 3) or an
+    indexed (vertices, faces) mesh, or a bare point cloud (vertices only)."""
+    if triangles is not None:
+        vertices = _to_numpy(triangles).reshape(-1, 3)
+        faces = np.arange(len(vertices), dtype=np.int64).reshape(-1, 3)
+    vertices = _to_numpy(vertices)
+    if faces is not None:
+        faces = _to_numpy(faces)
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\n")
+        f.write(f"element vertex {len(vertices)}\n")
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        if colors is not None:
+            f.write("property uchar red\nproperty uchar green\n"
+                    "property uchar blue\n")
+        if faces is not None:
+            f.write(f"element face {len(faces)}\n")
+            f.write("property list uchar int vertex_indices\n")
+        f.write("end_header\n")
+        if colors is not None:
+            c255 = np.clip(_to_numpy(colors) * 255, 0, 255).astype(np.uint8)
+            for v, c in zip(vertices, c255):
+                f.write(f"{v[0]} {v[1]} {v[2]} {c[0]} {c[1]} {c[2]}\n")
+        else:
+            for v in vertices:
+                f.write(f"{v[0]} {v[1]} {v[2]}\n")
+        if faces is not None:
+            for face in faces:
+                f.write(f"3 {face[0]} {face[1]} {face[2]}\n")
 
 
 def sample_mesh_surface(vertices, faces, n_points, seed=0):

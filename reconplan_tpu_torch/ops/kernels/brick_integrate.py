@@ -259,6 +259,8 @@ def brick_integrate(sdf_b, weight_b, rgb_b, ids, fbits, n_live, T_w2c,
             depth_max, max_weight)
     _check(sdf_b, weight_b, rgb_b, ids, fbits, n_live, T_w2c, depths,
            colors, origin)
+    if ids.shape[0] == 0:  # nothing to fold, and no launch to count
+        return
     if sdf_b.device.type == "cpu":
         brick_integrate_reference(*args)
         return

@@ -50,8 +50,9 @@ _SIGNATURES = {
     ),
     "brick_integrate_fixed_occupancy": [_P, _P],
     "brick_ablate_launch": (
-        [_I] + [_P] * 5 + [_I] + [_P] * 3 + [_I] * 5 + [_F] * 9 + [_P]
+        [_I] + [_P] * 5 + [_I] * 3 + [_P] * 3 + [_I] * 5 + [_F] * 9 + [_P]
     ),
+    "brick_ablate_occupancy": [_I, _P, _P],
     "gather_probe_launch": [_I] + [_P] * 2 + [_I] * 6 + [_P],
     "gather_probe_occupancy": [_I, _P, _P],
 }

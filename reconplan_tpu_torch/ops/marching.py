@@ -246,10 +246,11 @@ def _orient(vals, verts):
     return torch.stack([verts[:, :, 0], v1, v2], dim=2)
 
 
-def triangulate_cubes(grid: TSDFGrid, cube_idx):
+def triangulate_cubes(grid: TSDFGrid, cube_idx, cube_valid=None):
     """Marching-tetrahedra triangle emission for the given cubes.
 
-    ``cube_idx`` (M,) linear indices into the (D-1, H-1, W-1) cube grid.
+    ``cube_idx`` (M,) linear indices into the (D-1, H-1, W-1) cube grid;
+    ``cube_valid`` (M,) bool masks cubes out (padding), None keeps all.
     Returns verts (M, MAX_TRIS_PER_CUBE, 3, 3) world-space triangle
     vertices and tri_valid (M, MAX_TRIS_PER_CUBE).
     """
@@ -272,13 +273,16 @@ def triangulate_cubes(grid: TSDFGrid, cube_idx):
     safe = torch.clamp(tris_edges, min=0).reshape(M, 6, 6)
     verts = torch.gather(epts, 2, safe[..., None].expand(-1, -1, -1, 3))
     verts = verts.reshape(M, MAX_TRIS_PER_CUBE, 3, 3)
+    if cube_valid is not None:
+        tri_ok = tri_ok & cube_valid[:, None, None]
     return _orient(vals, verts), tri_ok.reshape(M, MAX_TRIS_PER_CUBE)
 
 
-def triangulate_cubes_table(grid: TSDFGrid, cube_idx):
+def triangulate_cubes_table(grid: TSDFGrid, cube_idx, cube_valid=None):
     """Classic table-MC triangle emission for the given cubes.
 
-    ``cube_idx`` (M,) linear indices into the (D-1, H-1, W-1) cube grid.
+    ``cube_idx`` (M,) linear indices into the (D-1, H-1, W-1) cube grid;
+    ``cube_valid`` (M,) bool masks cubes out (padding), None keeps all.
     Returns verts (M, MAX_TRIS_TABLE, 3, 3) world-space triangle vertices
     and tri_valid (M, MAX_TRIS_TABLE).
     """
@@ -311,6 +315,8 @@ def triangulate_cubes_table(grid: TSDFGrid, cube_idx):
     verts = torch.gather(
         epts, 1, safe.reshape(M, -1)[..., None].expand(-1, -1, 3)
     ).reshape(M, MAX_TRIS_TABLE, 3, 3)
+    if cube_valid is not None:
+        tri_ok = tri_ok & cube_valid[:, None]
     return _orient(vals, verts), tri_ok
 
 

@@ -15,16 +15,18 @@ from __future__ import annotations
 import torch
 
 
-def pairwise_sqdist(x, y):
+def pairwise_sqdist(x, y, precision=None, center=True):
     """Squared euclidean distances (N, D) x (M, D) -> (N, M).
 
-    The joint mean is subtracted first: the matmul identity's cancellation
-    error scales with |x||y|, and centring drops it by orders of magnitude
-    for scenes far from the origin.
+    ``center=True`` subtracts the joint mean first: the matmul identity's
+    cancellation error scales with |x||y|, and centring drops it by orders
+    of magnitude for scenes far from the origin. ``precision`` is accepted
+    and unused: full f32 with TF32 off is the only mode here.
     """
-    mu = 0.5 * (x.mean(dim=0) + y.mean(dim=0))
-    x = x - mu
-    y = y - mu
+    if center:
+        mu = 0.5 * (x.mean(dim=0) + y.mean(dim=0))
+        x = x - mu
+        y = y - mu
     x2 = (x * x).sum(dim=-1, keepdim=True)
     y2 = (y * y).sum(dim=-1, keepdim=True)
     xy = torch.matmul(x, y.T)

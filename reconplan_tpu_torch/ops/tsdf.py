@@ -45,20 +45,22 @@ class TSDFGrid(NamedTuple):
 
 
 def make_grid(dims, origin, voxel_size, trunc=None, with_color=False,
-              device=None) -> TSDFGrid:
+              dtype=torch.float32, device=None) -> TSDFGrid:
     """Allocate an empty grid. ``dims`` = (D, H, W) voxels; ``origin`` is
     the world position of the (0,0,0) voxel center; ``trunc`` defaults to
-    5 voxels. ``device`` defaults to the card (``"cpu"`` asks for the
-    CPU)."""
+    5 voxels. ``dtype`` is that of the sdf, weight and color volumes (the
+    origin, voxel size and trunc stay f32). ``device`` defaults to the
+    card (``"cpu"`` asks for the CPU)."""
     device = resolve_device(device)
     D, H, W = dims
     if trunc is None:
         trunc = 5.0 * voxel_size
     f32 = dict(dtype=torch.float32, device=device)
+    vol = dict(dtype=dtype, device=device)
     return TSDFGrid(
-        sdf=torch.ones((D, H, W), **f32),
-        weight=torch.zeros((D, H, W), **f32),
-        color=torch.zeros((D, H, W, 3) if with_color else (0, 0, 0, 3), **f32),
+        sdf=torch.ones((D, H, W), **vol),
+        weight=torch.zeros((D, H, W), **vol),
+        color=torch.zeros((D, H, W, 3) if with_color else (0, 0, 0, 3), **vol),
         origin=torch.as_tensor(np.array(origin, np.float32), device=device),
         voxel_size=torch.tensor(voxel_size, **f32),
         trunc=torch.tensor(trunc, **f32),
@@ -223,10 +225,13 @@ def integrate_frames(
     return grid._replace(sdf=sdf_out, weight=w_out, color=col_out)
 
 
-def extract_surface_points(grid: TSDFGrid, weight_min: float = 1.0):
+def extract_surface_points(grid: TSDFGrid, weight_min: float = 1.0,
+                           max_points: int = 0):
     """Surface voxel centers (|sdf| < 1 voxel) with validity mask.
 
-    Returns (points (N, 3), valid (N,)) with N = D*H*W.
+    Returns (points (N, 3), valid (N,)) with N = D*H*W. ``max_points`` is
+    accepted and unused, as in the JAX function, whose output has that
+    fixed shape whatever it is given.
     """
     world = _voxel_world_coords(grid)
     band = grid.voxel_size / grid.trunc

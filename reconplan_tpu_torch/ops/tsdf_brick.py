@@ -336,17 +336,20 @@ def compact_ids(mask, size, fill):
 
 def chunk_active_set(d_chunk, T_chunk, intr, origin, brick_dims, voxel_size,
                      trunc, max_active, nb_scratch, depth_scale=1000.0,
-                     depth_max=3.0):
+                     depth_max=3.0, dilate_active=False):
     """The bricks one chunk of frames updates, on the device.
 
     Occupancy mip -> K2 per-frame bits -> exact refine (or the centre
     mask when no mip cell divides the frames) -> stable-argsort
-    compaction. Returns (ids (M,) i32 with padding at ``nb_scratch``,
+    compaction. With ``dilate_active`` (always when no mip cell divides
+    the frames) the active mask is dilated one brick along each axis, with
+    wrap-around, and the dilated-in bricks integrate every frame. Returns (ids (M,) i32 with padding at ``nb_scratch``,
     fbits (M,) i32, n_chunk (1,) i32 live count, n_mask () i32 unclamped
     count), M = min(max_active, NB). Nothing is read on the host.
     """
     bd, bh, bw = brick_dims
     F_chunk, Hd, Wd = d_chunk.shape
+    all_frames = (1 << F_chunk) - 1
     occ_cell = _occupancy_cell(Hd, Wd)
     if occ_cell is not None:
         occ0, occ1, binp = _build_depth_occupancy(
@@ -358,13 +361,17 @@ def chunk_active_set(d_chunk, T_chunk, intr, origin, brick_dims, voxel_size,
         bits = refine_frame_bits(bits, d_chunk, T_chunk, intr, origin,
                                  brick_dims, voxel_size, trunc, max_active,
                                  depth_scale, depth_max)
+        if dilate_active:
+            # dilated-in bricks integrate all frames (conservative)
+            mask = _dilate((bits != 0).reshape(bd, bh, bw)).reshape(-1)
+            bits = torch.where(mask, bits | all_frames, 0).to(torch.int32)
     else:
         # the centre sample can clip the band at silhouettes: dilate it
         # one brick, and integrate every frame (no per-frame skip)
         mask = _dilate(active_brick_mask(
             brick_dims, origin, voxel_size, trunc, d_chunk, T_chunk,
             *intr, depth_scale, depth_max).reshape(bd, bh, bw)).reshape(-1)
-        bits = torch.where(mask, (1 << F_chunk) - 1, 0).to(torch.int32)
+        bits = torch.where(mask, all_frames, 0).to(torch.int32)
     return compact_active(bits, max_active, nb_scratch)
 
 
@@ -400,6 +407,7 @@ def _integrate_device_all(
     sdf_b, weight_b, rgb_b, poses, intr, depths, colors, origin,
     brick_dims, max_active, voxel_size, trunc,
     depth_scale, depth_max, max_weight, frames_per_dispatch,
+    dilate_active=False,
 ):
     """Per chunk of <= frames_per_dispatch frames: the active set
     (:func:`chunk_active_set`) -> K1, all on the device with no host sync.
@@ -412,7 +420,8 @@ def _integrate_device_all(
         T_chunk = T_w2c_all[chunk].contiguous()
         ids, fbits, n_chunk, n_mask = chunk_active_set(
             d_chunk, T_chunk, intr, origin, brick_dims, voxel_size, trunc,
-            max_active, sdf_b.shape[0] - 1, depth_scale, depth_max)
+            max_active, sdf_b.shape[0] - 1, depth_scale, depth_max,
+            dilate_active)
         n_active = n_active + n_mask
         brick_integrate(
             sdf_b, weight_b, rgb_b, ids, fbits, n_chunk, T_chunk, intr,
@@ -434,8 +443,15 @@ def integrate_frames_bricked_device(
     max_weight=64.0,
     max_active=8192,
     frames_per_dispatch=8,
+    dilate_active=False,
 ):
     """Zero-host-sync brick integration (the production/bench path).
+
+    ``dilate_active`` defaults False: K2's occupancy mask is already a
+    conservative superset of every brick K1 can update in-band (dilation
+    is forced on for frame sizes where no mip can be built). When set, the
+    mask grows one brick along each axis and the dilated-in bricks
+    integrate every frame of the chunk.
 
     The grid's planes are updated IN PLACE (the JAX path donates them); the
     returned grid holds the same tensors. ``colors`` enables the packed-RGB
@@ -475,6 +491,7 @@ def integrate_frames_bricked_device(
         poses, intr, depths.contiguous(), packed, grid.origin,
         grid.brick_dims, max_active, grid.voxel_size, grid.trunc,
         depth_scale, depth_max, max_weight, frames_per_dispatch,
+        dilate_active,
     )
     return grid, n_active
 

@@ -88,6 +88,7 @@ def sharded_integrate_frames_bricked(
     depths,
     poses_cam_to_world,
     fx, fy, cx, cy,
+    devices=None,
     depth_scale=1000.0,
     depth_max=3.0,
     max_weight=64.0,
@@ -96,12 +97,16 @@ def sharded_integrate_frames_bricked(
     """Integrate all frames into a brick-sharded grid, one K3 launch per
     shard, with the shards' planes updated in place.
 
+    The grid carries the devices of its shards; ``devices`` (the JAX
+    function's ``mesh``) may name them again and must then equal them.
+
     A shard with more than ``max_active_per_device`` active bricks drops
     its highest-index ones. Returns ``((grid, nb_local), n_active)``,
     ``n_active`` the unclamped total active count as a 0-d i32 tensor on
     the first shard's device.
     """
     grid, nb_local = grid_and_nbl
+    _check_devices(grid, devices)
     intr = tuple(float(np.float32(v)) for v in (fx, fy, cx, cy))
     replicated = {}  # device -> (depths, w2c poses, origin, global mask)
     counts = []
@@ -132,11 +137,23 @@ def sharded_integrate_frames_bricked(
     return (grid, nb_local), n_active
 
 
-def gather_brick_grid(grid_and_nbl, device=None) -> tb.BrickGrid:
+def _check_devices(grid, devices):
+    """Raise if ``devices`` is given and is not the list the sharded
+    ``grid`` was made on."""
+    if devices is not None and [resolve_device(d) for d in devices] != list(
+            grid.devices):
+        raise ValueError(f"devices {list(devices)} are not the grid's "
+                         f"{list(grid.devices)}")
+
+
+def gather_brick_grid(grid_and_nbl, devices=None,
+                      device=None) -> tb.BrickGrid:
     """Collect a brick-sharded grid into one ``BrickGrid`` with a single
     scratch row, on ``device`` (default: the first shard's), for
-    extraction."""
+    extraction. ``devices`` as in
+    :func:`sharded_integrate_frames_bricked`."""
     grid, _ = grid_and_nbl
+    _check_devices(grid, devices)
     dev = resolve_device(device) if device is not None else grid.devices[0]
 
     def strip(planes, pad_value):

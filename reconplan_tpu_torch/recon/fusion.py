@@ -134,10 +134,13 @@ class FusionPipeline:
 
 
 def fuse_frameset(frames: FrameSet, dims=(256, 256, 256), origin=None,
-                  voxel_size=None, with_color=False, device=None):
+                  voxel_size=None, with_color=False, weight_min=1.0,
+                  device=None):
     """One-shot fusion of a posed FrameSet. Auto-fits the grid to the
     observed volume when origin/voxel_size are omitted (from the poses'
-    look directions at the median depth)."""
+    look directions at the median depth). ``weight_min`` is accepted and
+    unused, as in the JAX function: the extraction methods of the
+    returned pipeline take it."""
     if origin is None or voxel_size is None:
         poses = np.asarray(torch.as_tensor(frames.poses).cpu())
         depth = np.asarray(torch.as_tensor(frames.depth).cpu())

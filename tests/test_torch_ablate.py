@@ -184,9 +184,67 @@ def test_no_fbits_differs_from_full(scene):
                               _port(scene, "full")[0])
 
 
+@pytest.mark.parametrize("arm", ["no_skips", "static_stride", "pr1_full"])
+def test_arm_plain_equals_full_bitwise(scene, arm):
+    """The arms that compute what K1 computes another way share ``full``'s
+    plain body."""
+    for a, b in zip(_port(scene, arm), _port(scene, "full")):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_smem_window_plain_equals_full_bitwise(scene):
     for a, b in zip(_port(scene, "smem_window"), _port(scene, "full")):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("arm", ["no_skips", "static_stride", "pr1_full"])
+def test_new_arm_matches_tpu_full(scene, arm):
+    """No TPU arm asks what these ask; each computes ``full``, so it is
+    held to the TPU kernel's ``full``."""
+    _compare(_port(scene, arm), scene["jax"]["full"], scene["ties"],
+             f"{arm} vs TPU full")
+
+
+@pytest.mark.parametrize("arm", ["full", "pr1_full"])
+def test_empty_id_list_changes_nothing_and_counts_no_launch(scene, arm):
+    """With no ids there is nothing to launch: the wrapper returns before
+    it counts, and the planes stay as they were."""
+    from reconplan_tpu_torch.ops.kernels import brick_ablate
+
+    g = tb.brick_grid_from_numpy(scene["start"]["sdf"],
+                                 scene["start"]["weight"], None, DIMS,
+                                 ORIGIN, VOX, TRUNC, device="cpu")
+    ids, fbits, n, T, intr, d = scene["args"][:6]
+    before = dict(brick_ablate.launches)
+    brick_ablate(arm, g.sdf, g.weight, ids[:0], fbits[:0],
+                 torch.zeros_like(n), T, intr, d.contiguous(),
+                 *scene["args"][6:])
+    assert brick_ablate.launches == before
+    np.testing.assert_array_equal(g.sdf.numpy(), scene["start"]["sdf"])
+    np.testing.assert_array_equal(g.weight.numpy(), scene["start"]["weight"])
+
+
+def test_arms_follow_the_cuda_enum():
+    """``ARMS`` is the order of ``enum Arm`` in ``csrc/brick_ablate.cu``,
+    and the tool's table of TPU arms names every arm."""
+    import re
+
+    from reconplan_tpu_torch.benchmarks import profile_brick
+    from reconplan_tpu_torch.ops.kernels import brick_ablate
+    from reconplan_tpu_torch.ops.kernels.brick_ablate import ARMS
+
+    with open(os.path.join(REPO, "reconplan_tpu_torch", "csrc",
+                           "brick_ablate.cu")) as f:
+        body = re.search(r"enum Arm : int \{(.*?)\};", f.read(), re.S).group(1)
+    enum = re.findall(r"k(\w+) = (\d+)", body)
+    assert [int(v) for _, v in enum] == list(range(len(ARMS)))
+    assert [n.lower() for n, _ in enum] == [a.replace("_", "") for a in ARMS]
+    assert len(ARMS) == 9 and set(profile_brick.TPU_ARMS) == set(ARMS)
+    assert all(profile_brick.TPU_ARMS[a] == []
+               for a in ("no_skips", "static_stride", "pr1_full"))
+    assert set(brick_ablate.launches) == set(ARMS)
+    with pytest.raises(ValueError, match="unknown ablation arm"):
+        brick_ablate_reference("full2", *[None] * 15)
 
 
 def test_one_row_against_tpu_no_rowloop(scene):

@@ -303,3 +303,43 @@ def test_kernel_wrappers_check_their_inputs():
                         (1.0, 1.0, 0.0, 0.0), depths,
                         depths.int(), origin, (1, 1, 1), 0.01, 0.05,
                         1000.0, 3.0, 64.0)
+
+
+def _chunk_bits(scene, **kw):
+    """The port's active set of the scene's frames as per-brick frame bits
+    (NB,), with the live count and the ids."""
+    bd = _brick_dims(scene["dims"])
+    NB = bd[0] * bd[1] * bd[2]
+    ids, fbits, n, n_mask = tb.chunk_active_set(
+        t(scene["depths"]), t(scene["w2c"]), tuple(map(f32, scene["K"])),
+        t(ORIGIN, torch.float32), bd, scene["vox"], scene["trunc"], 8192, NB,
+        **kw)
+    n = int(n)
+    assert int(n_mask) == n and (ids[n:] == NB).all() and (fbits[n:] == 0).all()
+    assert (ids[:n].diff() > 0).all()  # index order
+    bits = np.zeros(NB, np.int32)
+    bits[ids[:n].numpy()] = fbits[:n].numpy()
+    return bits, n
+
+
+def test_chunk_active_set_dilate_active(scene):
+    """``dilate_active=True`` grows the active mask one brick along each
+    axis with wrap-around rolls and turns every frame bit on for the
+    masked bricks, as the JAX path does after its refine
+    (``reconplan_tpu/ops/tsdf_brick.py:1252-1258``); the default path's
+    bits stay as they were."""
+    bd = _brick_dims(scene["dims"])
+    all_on = (1 << len(scene["depths"])) - 1
+    bits, n = _chunk_bits(scene)
+    again, _ = _chunk_bits(scene, dilate_active=False)
+    np.testing.assert_array_equal(bits, again)
+    m = jnp.asarray(bits != 0).reshape(bd)
+    for ax in range(3):
+        m = m | jnp.roll(m, 1, ax) | jnp.roll(m, -1, ax)
+    expect = np.where(np.asarray(m).reshape(-1), bits | all_on, 0)
+    dilated, n_dil = _chunk_bits(scene, dilate_active=True)
+    np.testing.assert_array_equal(dilated, expect)
+    assert n_dil == int(np.asarray(m).sum()) >= n
+    if scene["dims"][0] == 64:
+        # bricks join and frame bits turn on: the option has teeth here
+        assert n_dil > n and (bits[bits != 0] != all_on).any()

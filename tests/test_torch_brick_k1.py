@@ -17,6 +17,7 @@ Tolerances and why:
 * packed color within 1 level at q99.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -115,3 +116,43 @@ def test_k1_color_matches_pallas_kernel(orbit):
                     - unpack_rgb(ref["rgb"]))[both]
     print(f"color vs JAX K1: max {levels.max()} levels")
     assert np.quantile(levels, 0.99) <= 1, np.quantile(levels, 0.99)
+
+
+def test_dilate_active_matches_jax_device_path(orbit, monkeypatch):
+    """``integrate_frames_bricked_device(dilate_active=True)`` against the
+    jitted JAX function: the ids, frame bits and live count that reach K1
+    are equal on every brick, and the planes agree as above."""
+    seen = {"jax": [], "port": []}
+    jax_k1, port_k1 = jb._integrate_bricks_dyn, tb.brick_integrate
+
+    def jax_spy(sdf_b, weight_b, rgb_b, ids, meta, T, intr, fbits, *rest):
+        jax.debug.callback(
+            lambda i, f, m: seen["jax"].append(
+                (np.asarray(i), np.asarray(f), int(m[7]))), ids, fbits, meta)
+        return jax_k1(sdf_b, weight_b, rgb_b, ids, meta, T, intr, fbits,
+                      *rest)
+
+    def port_spy(sdf_b, weight_b, rgb_b, ids, fbits, n_live, *rest):
+        seen["port"].append((ids.numpy().copy(), fbits.numpy().copy(),
+                             int(n_live)))
+        return port_k1(sdf_b, weight_b, rgb_b, ids, fbits, n_live, *rest)
+
+    monkeypatch.setattr(jb, "_integrate_bricks_dyn", jax_spy)
+    monkeypatch.setattr(tb, "brick_integrate", port_spy)
+    gj = jb.make_brick_grid(DIMS, ORIGIN, VOX)
+    with pallas_tpu_interpret(), same_inverse():
+        gj, n_jax = jb.integrate_frames_bricked_device(
+            gj, orbit["d0"], orbit["p0"], *orbit["K"], dilate_active=True)
+        ref = {k: np.asarray(getattr(gj, k)) for k in ("sdf", "weight")}
+        jax.effects_barrier()
+    g = tb.make_brick_grid(DIMS, ORIGIN, VOX, device="cpu")
+    g, n_port = tb.integrate_frames_bricked_device(
+        g, orbit["d0"], orbit["p0"], *orbit["K"], dilate_active=True)
+    assert int(n_port) == int(n_jax) > 0
+    assert len(seen["jax"]) == len(seen["port"]) == 1
+    (ids_j, fb_j, n_j), (ids_p, fb_p, n_p) = seen["jax"][0], seen["port"][0]
+    assert n_j == n_p
+    np.testing.assert_array_equal(ids_p, ids_j)
+    np.testing.assert_array_equal(fb_p, fb_j)
+    assert (fb_p[:n_p] == 15).all()  # dilated: every frame of every brick
+    _compare(g, ref)

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, and the
+kinematics on the card against the same calls on the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device: the
 kernels are CUDA C++ and have no CPU mode. This file imports neither JAX
@@ -28,6 +29,9 @@ from reconplan_tpu_torch.ops.kernels import (
 )
 from reconplan_tpu_torch.ops.kernels.active_mask import MIP_CELLS
 from reconplan_tpu_torch.ops.kernels.brick_ablate import ARMS, footprint
+from reconplan_tpu_torch.ops.kernels.brick_ablate import (
+    grid_size as ablate_grid_size,
+)
 from reconplan_tpu_torch.ops.kernels.brick_integrate import (
     _project_voxels,
     _voxel_world,
@@ -211,9 +215,14 @@ def _ablate_case(card, d, T, intr, origin, bd):
     return planes, rest
 
 
+# the arms that compute what K1 computes, another way
+AS_K1_ARMS = ("full", "smem_window", "no_skips", "static_stride", "pr1_full")
+
+
 def _check_arm(arm, planes, rest):
     """The arm's kernel against its plain version (sdf within 1e-6, weight
-    identical) and, for full and smem_window, against K1 bit for bit."""
+    identical) and, for the arms of ``AS_K1_ARMS``, against K1 bit for
+    bit."""
     out = [a.clone() for a in planes]
     ref = [a.clone() for a in planes]
     before = brick_ablate.launches[arm]
@@ -227,10 +236,10 @@ def _check_arm(arm, planes, rest):
         assert all(torch.equal(a, b) for a, b in zip(out, planes))
     else:
         assert not torch.equal(out[1], planes[1])
-    if arm in ("full", "smem_window"):
+    if arm in AS_K1_ARMS:
         k1 = [a.clone() for a in planes]
         brick_integrate(*k1, None, *rest[:6], None, *rest[6:])
-        assert torch.equal(out[0], k1[0]) and torch.equal(out[1], k1[1])
+        assert _same_bits(out[0], k1[0]) and _same_bits(out[1], k1[1])
 
 
 @pytest.mark.parametrize("arm", ARMS)
@@ -240,7 +249,8 @@ def test_ablate_arm_matches_plain(chunk, card, arm):
     _check_arm(arm, planes, rest)
 
 
-@pytest.mark.parametrize("arm", ["full", "smem_window", "one_row"])
+@pytest.mark.parametrize("arm", ["full", "smem_window", "one_row",
+                                 "no_skips"])
 def test_ablate_tall_footprints(card, arm):
     """640x480 frames at fx 615.67 on the 64^3 grid of 5 mm voxels: brick
     footprints taller than the 64-row tile, so smem_window reads their
@@ -486,15 +496,15 @@ def _k3_case(card, M, real, n_frames=8, seed=11, weights=(0, 5)):
     return planes, rest
 
 
+def _same_bits(a, b):
+    """Equal bit for bit: the sign of a zero counts."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def _k3_reference_planes(planes, rest):
     ref = [a.clone() for a in planes]
     brick_integrate_fixed_reference(*ref, *rest)
     return ref
-
-
-def _same_bits(a, b):
-    """Equal bit for bit: the sign of a zero counts."""
-    return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def _k3_matches_plain(planes, rest, launches=1):
@@ -664,3 +674,217 @@ def test_k3_on_two_streams_and_beside_k1(card):
         assert torch.equal(k3_out[1], k3_ref[1])
         brick_integrate_reference(*k1_ref, None, *k1_rest)
         k3_ref = _k3_reference_planes(k3_ref, k3_rest)
+
+
+# --- the ablation arms on K1's schedule (K4/K5) ----------------------------
+
+
+def _edge_state(card, NB, seed=21):
+    """Prior planes that meet every exact skip: weights of 0, 1 and 64
+    (the weight cap), sdf of +0, -0, +-1 and random values."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    shape = (NB + 1, 8, 128)
+    w = torch.tensor([0.0, 1.0, 64.0], device=card)[
+        torch.randint(0, 3, shape, generator=gen, device=card)]
+    pick = torch.randint(0, 5, shape, generator=gen, device=card)
+    sdf = torch.rand(shape, generator=gen, device=card) * 2 - 1
+    for k, v in enumerate((0.0, -0.0, 1.0, -1.0)):
+        sdf = torch.where(pick == k, torch.full_like(sdf, v), sdf)
+    return [sdf, w]
+
+
+@pytest.mark.parametrize("arm", AS_K1_ARMS)
+def test_ablate_arm_equals_k1_bitwise_at_the_schedules_edges(card, arm):
+    """n_live = 0, 1, one past the persistent grid and max_active, on
+    prior weights of 0 / 1 / 64 and sdf of +-0: the arm's planes equal
+    K1's depth-only planes bit for bit, twice in a row (the arm's work
+    counter is back at zero after each launch)."""
+    bd = (16, 16, 8)
+    NB = bd[0] * bd[1] * bd[2]
+    fb = torch.randint(0, 256, (NB,), generator=torch.Generator()
+                       .manual_seed(22), dtype=torch.int32)
+    fb[::7] = 0
+    _, rest = _k1_case(card, 8, bd, WIDE_ORIGIN, WIDE_VOX, fb, False)
+    planes = _edge_state(card, NB)
+    assert (planes[0].view(torch.int32) == -(1 << 31)).any()  # a -0
+    G = ablate_grid_size(arm, card, NB)
+    assert arm == "pr1_full" or G == grid_size(False, card, NB)
+    touched = False
+    for n in (0, 1, grid_size(False, card, NB) + 1, NB):
+        rest[2] = torch.tensor([n], dtype=torch.int32, device=card)
+        k1 = [a.clone() for a in planes]
+        brick_integrate(*k1, None, *rest)
+        out = [a.clone() for a in planes]
+        depth_rest = rest[:6] + rest[7:]
+        for _ in range(2):
+            again = [a.clone() for a in planes]
+            brick_ablate(arm, *again, *depth_rest)
+            torch.cuda.synchronize()
+            assert _same_bits(again[0], k1[0]) and _same_bits(again[1], k1[1])
+        if n == 0:
+            assert all(_same_bits(a, b) for a, b in zip(k1, out))
+        touched |= not torch.equal(k1[1], planes[1])
+    assert touched
+
+
+@pytest.mark.parametrize("arm", ["full", "static_stride", "smem_window"])
+def test_ablate_arm_and_k1_on_two_streams_at_once(card, arm):
+    """K1 on one stream and an arm on another, neither waiting for the
+    other: the two libraries' work counters are apart, so each equals its
+    plain version."""
+    bd = (16, 16, 8)
+    NB = bd[0] * bd[1] * bd[2]
+    fb = torch.randint(0, 256, (NB,), generator=torch.Generator()
+                       .manual_seed(23), dtype=torch.int32)
+    (p1, r1), (p2, r2) = (_k1_case(card, 8, bd, WIDE_ORIGIN, WIDE_VOX, fb,
+                                   False, seed=s) for s in (24, 25))
+    for r in (r1, r2):
+        r[2] = torch.tensor([NB - 3], dtype=torch.int32, device=card)
+    d2 = r2[:6] + r2[7:]
+    out1, out2 = [a.clone() for a in p1[:2]], [a.clone() for a in p2[:2]]
+    ref1, ref2 = [a.clone() for a in p1[:2]], [a.clone() for a in p2[:2]]
+    torch.cuda.synchronize()
+    s1, s2 = torch.cuda.Stream(card), torch.cuda.Stream(card)
+    for _ in range(3):
+        with torch.cuda.stream(s1):
+            brick_integrate(*out1, None, *r1)
+        with torch.cuda.stream(s2):
+            brick_ablate(arm, *out2, *d2)
+        torch.cuda.synchronize()
+        brick_integrate_reference(*ref1, None, *r1)
+        brick_ablate_reference(arm, *ref2, *d2)
+        for out, ref in ((out1, ref1), (out2, ref2)):
+            assert (out[0] - ref[0]).abs().max().item() <= 1e-6
+            assert torch.equal(out[1], ref[1])
+
+
+def test_ablate_wrapper_refuses_nonpositive_scale_and_trunc(chunk, card):
+    planes, rest = _ablate_case(card, chunk["d"], chunk["T"], chunk["intr"],
+                                chunk["origin"], (8, 8, 4))
+    before = dict(brick_ablate.launches)
+    with pytest.raises(ValueError, match="depth_scale and trunc"):
+        brick_ablate("full", *planes, *rest[:10], 0.0, *rest[11:])
+    with pytest.raises(ValueError, match="unknown ablation arm"):
+        brick_ablate("full2", *planes, *rest)
+    assert brick_ablate.launches == before
+
+
+def test_an_empty_id_list_counts_no_launch(chunk, card):
+    """Neither K1's wrapper nor an arm's launches, or counts, on no ids."""
+    planes, rest = _ablate_case(card, chunk["d"], chunk["T"], chunk["intr"],
+                                chunk["origin"], (8, 8, 4))
+    none = (rest[0][:0], rest[1][:0], torch.zeros_like(rest[2])) + rest[3:]
+    out = [a.clone() for a in planes]
+    before = dict(brick_ablate.launches), brick_integrate.launches
+    brick_ablate("full", *out, *none)
+    brick_integrate(*out, None, *none[:6], None, *none[6:])
+    torch.cuda.synchronize()
+    assert (brick_ablate.launches, brick_integrate.launches) == before
+    assert all(torch.equal(a, b) for a, b in zip(out, planes))
+
+
+# --- the kinematics on the card ----------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def ur10_pair(card):
+    """The scan problem's UR10 with no device given (the card), and on
+    the CPU."""
+    from reconplan_tpu_torch.io.config import load_problem
+    from reconplan_tpu_torch.kin import make_robot
+
+    opts = load_problem("ur10", "rot_free")
+    return make_robot(opts), make_robot(opts, device="cpu")
+
+
+def test_robot_without_a_device_lands_on_the_card(ur10_pair):
+    from reconplan_tpu_torch.kin import Planar
+
+    on_card, _ = ur10_pair
+    assert on_card.device.type == "cuda"
+    for a in on_card.model[2:]:
+        assert a.device.type == "cuda" and a.dtype == torch.float32
+    assert on_card._spheres["self"][1].device.type == "cuda"
+    planar = Planar("planar_5", [[-0.5, 0.5], [-0.5, 0.5], [0, 0]], [0, 0, 1])
+    assert planar.device.type == "cuda"
+    assert planar.solve_fk_batch(planar.sample(4)).__getitem__(0).is_cuda
+
+
+def test_paths_and_so3_grid_on_the_card_equal_the_cpu(card):
+    """With no device given their quaternion maths runs on the card."""
+    from reconplan_tpu_torch.core import grids
+    from reconplan_tpu_torch.grr import paths
+
+    obj = [0.75, 0.75, 0.0]
+    np.testing.assert_allclose(
+        paths.scan_arc(obj, num_points=64),
+        paths.scan_arc(obj, num_points=64, device="cpu"), rtol=0, atol=1e-6)
+    start = np.array([0.4, 0.1, 0.3, 0.0, 0.0, 0.0, 1.0])
+    goal = np.array([0.1, 0.5, 0.2, 0.0, 0.7071068, 0.0, 0.7071068])
+    axis = np.array([0.0, 0.0, 0.0, 0.0, 0.0, np.pi / 2])
+    for a, b in ((paths.get_arc_path(start, axis, 2.0, 5),
+                  paths.get_arc_path(start, axis, 2.0, 5, device="cpu")),
+                 (paths.get_linear_path(start, goal, 2.0, 5),
+                  paths.get_linear_path(start, goal, 2.0, 5, device="cpu"))):
+        np.testing.assert_allclose(np.stack([x[1] for x in a]),
+                                   np.stack([x[1] for x in b]), rtol=0,
+                                   atol=1e-6)
+    # two neighbours: the next and the one before, with no tie between
+    # equally far points for a last bit of the quaternions to decide
+    q, e = grids.get_so3_grid(8, [0, 0, 1], [-np.pi, 0.0, 0.0], 2)
+    qc, ec = grids.get_so3_grid(8, [0, 0, 1], [-np.pi, 0.0, 0.0], 2,
+                                device="cpu")
+    np.testing.assert_allclose(q, qc, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(e, ec)
+
+
+def test_fk_on_the_card_equals_the_cpu(ur10_pair):
+    on_card, on_cpu = ur10_pair
+    configs = on_cpu.sample(500, rng=np.random.default_rng(0))
+    for a, b in zip(on_card.solve_fk_batch(configs),
+                    on_cpu.solve_fk_batch(configs)):
+        assert a.is_cuda and (a.cpu() - b).abs().max().item() <= 2e-6
+    pts = on_card.fk_point_batch(configs)
+    assert (pts.cpu() - on_cpu.fk_point_batch(configs)).abs().max() <= 2e-6
+    assert torch.equal(on_card._validate_batch(configs).cpu(),
+                       on_cpu._validate_batch(configs))
+
+
+@pytest.mark.parametrize("use_rotation", [True, False])
+def test_ik_on_the_card_equals_the_cpu_in_lock_step(ur10_pair, use_rotation):
+    """Three iterations from seeds 0.1 rad off a solution: configurations
+    to 1e-5, iterations and success equal."""
+    from reconplan_tpu_torch.core import maths
+    from reconplan_tpu_torch.kin.ik import dls_ik_batch
+
+    on_card, on_cpu = ur10_pair
+    rng = np.random.default_rng(1)
+    qs = on_cpu.sample(64, rng=rng)
+    pts = on_cpu.fk_point_batch(qs)
+    seeds = torch.as_tensor(
+        (qs + rng.normal(0, 0.1, qs.shape)).astype(np.float32))
+    rot = maths.quat_to_matrix(pts[:, 3:7])
+    res = []
+    for rob in (on_card, on_cpu):
+        dev = rob.device
+        res.append(dls_ik_batch(
+            rob.model, rob._active_tuple, rob.ee_link, pts[:, :3].to(dev),
+            rot.to(dev), seeds.to(dev), rob._q_rest, max_iters=3,
+            use_rotation=use_rotation))
+    a, b = res
+    assert a.config.is_cuda
+    assert (a.config.cpu() - b.config).abs().max().item() <= 1e-5
+    assert torch.equal(a.iters.cpu(), b.iters)
+    assert torch.equal(a.success.cpu(), b.success)
+
+
+def test_solve_ik_batch_on_the_card_reaches_its_targets(ur10_pair):
+    on_card, _ = ur10_pair
+    rng = np.random.default_rng(2)
+    qs = on_card.sample(64, rng=rng)
+    pts = on_card.fk_point_batch(qs)
+    seeds = (qs + rng.normal(0, 0.3, qs.shape)).astype(np.float32)
+    q, ok = on_card.solve_ik_batch(pts, seeds)
+    assert q.is_cuda and ok.float().mean().item() > 0.3
+    reach = (on_card.fk_point_batch(q)[:, :3] - pts[:, :3]).norm(dim=-1)
+    assert reach[ok].max().item() < 1e-3

@@ -147,3 +147,33 @@ def test_max_cubes_matches_jax(variant):
                                rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="variant"):
         tmc.marching_cubes(gt, variant="dual")
+
+
+@pytest.mark.parametrize("variant", ["table", "tetra"])
+def test_cube_valid_masks_cubes_as_jax(variant):
+    """``cube_valid`` masks padding cubes out
+    (``reconplan_tpu/ops/marching.py:228`` and ``:318``); None keeps all."""
+    n = 12
+    z, y, x = np.meshgrid(*[np.arange(n, dtype=np.float32)] * 3,
+                          indexing="ij")
+    sdf = (np.sqrt((x - 5.5) ** 2 + (y - 5.5) ** 2 + (z - 5.5) ** 2)
+           - 3.7).astype(np.float32) / 5.0
+    gj = jtsdf.make_grid((n,) * 3, (0, 0, 0), 1.0)._replace(
+        sdf=jnp.asarray(sdf), weight=jnp.ones((n,) * 3, jnp.float32))
+    gt = ttsdf.tsdf_grid_from_numpy(sdf, np.ones((n,) * 3, np.float32),
+                                    np.zeros((0, 0, 0, 3), np.float32),
+                                    (0, 0, 0), 1.0, 5.0, device="cpu")
+    idx = np.flatnonzero(np.asarray(jmc.active_cubes(gj)).reshape(-1))
+    valid = np.random.default_rng(0).uniform(size=len(idx)) < 0.6
+    fj = {"table": jmc.triangulate_cubes_table, "tetra": jmc.triangulate_cubes}
+    ft = {"table": tmc.triangulate_cubes_table, "tetra": tmc.triangulate_cubes}
+    vj, okj = fj[variant](gj, jnp.asarray(idx), jnp.asarray(valid))
+    vt, okt = ft[variant](gt, torch.as_tensor(idx), torch.as_tensor(valid))
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    assert not okt[~torch.as_tensor(valid)].any() and okt.any()
+    np.testing.assert_allclose(vt.numpy()[okt.numpy()],
+                               np.asarray(vj)[np.asarray(okj)], atol=1e-6)
+    _, ok_all = ft[variant](gt, torch.as_tensor(idx))
+    _, ok_ones = ft[variant](gt, torch.as_tensor(idx),
+                             torch.ones(len(idx), dtype=torch.bool))
+    assert torch.equal(ok_all, ok_ones) and ok_all.sum() > okt.sum()

@@ -199,3 +199,29 @@ def test_points_to_mesh_distance_matches_jax():
             256, -1, -1, -1)).min(-1).values)
     np.testing.assert_allclose(dt.numpy(), brute.numpy(), atol=1e-7)
     assert 1e-4 < float(dt.mean()) < 1e-2
+
+
+@pytest.mark.parametrize("center", [True, False])
+def test_pairwise_sqdist_center_and_precision_match_jax(center):
+    """``center=False`` skips the centring, and ``precision=`` is taken
+    and ignored (full f32 is the port's only mode). Far from the origin
+    the uncentred identity loses digits: both packages lose the same."""
+    import jax
+
+    rng = np.random.default_rng(3)
+    x = (rng.normal(size=(40, 3)) + 50.0).astype(np.float32)
+    y = (rng.normal(size=(30, 3)) + 50.0).astype(np.float32)
+    got = tnn.pairwise_sqdist(torch.as_tensor(x), torch.as_tensor(y),
+                              precision="highest", center=center).numpy()
+    ref = np.asarray(jnn.pairwise_sqdist(
+        jnp.asarray(x), jnp.asarray(y),
+        precision=jax.lax.Precision.HIGHEST, center=center))
+    exact = ((x[:, None].astype(np.float64) - y[None]) ** 2).sum(-1)
+    # |x|^2 is about 7500 here: one f32 ulp of it is 5e-4
+    tol = 1e-5 if center else 5e-3
+    np.testing.assert_allclose(got, ref, rtol=0, atol=tol)
+    np.testing.assert_allclose(got, exact, rtol=0, atol=tol)
+    if not center:
+        centred = tnn.pairwise_sqdist(torch.as_tensor(x),
+                                      torch.as_tensor(y)).numpy()
+        assert np.abs(got - exact).max() > 10 * np.abs(centred - exact).max()

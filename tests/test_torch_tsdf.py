@@ -5,14 +5,22 @@ packages; the JAX side runs op by op with the same w2c poses
 (``torch_parity.jax_eager``), so the two agree to the last bit.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from reconplan_tpu.ops import tsdf as jtsdf
+from reconplan_tpu_torch.core import grids as tgrids
+from reconplan_tpu_torch.grr import paths as tpaths
 from reconplan_tpu_torch.io import render as trender
+from reconplan_tpu_torch.io.config import load_problem
 from reconplan_tpu_torch.io.frames import FrameSet
+from reconplan_tpu_torch.kin import chain as tchain
+from reconplan_tpu_torch.kin import robot as trobot
+from reconplan_tpu_torch.kin.rob_parser import parse_rob
 from reconplan_tpu_torch.ops import tsdf as ttsdf
 from reconplan_tpu_torch.ops import tsdf_brick as tb
 from reconplan_tpu_torch.parallel import make_sharded_brick_grid
@@ -126,12 +134,27 @@ def test_resolve_device_defaults_to_the_card(monkeypatch):
 
 
 _SMALL = ((16, 16, 16), (0.0, 0.0, 0.0), 0.01)
+_PLANAR_ROB = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "data", "robots", "planar_5.rob")
 
 
 def _small_frames():
     return FrameSet(depth=np.zeros((1, 8, 8), np.float32),
                     poses=np.eye(4, dtype=np.float32)[None],
                     intrinsics=(10.0, 10.0, 4.0, 4.0))
+
+
+_ARC = (np.array([0.4, 0.1, 0.3, 0.0, 0.0, 0.0, 1.0]),
+        np.array([0.0, 0.0, 0.0, 0.0, 0.0, np.pi / 2]))
+
+
+def _numpy_out(result):
+    """For an entry point that takes and returns numpy: nothing of the
+    result is left on a device, so the CPU call only has to run."""
+    first = result[0][1] if isinstance(result, list) else result
+    first = first[0] if isinstance(first, tuple) else first
+    assert isinstance(first, np.ndarray)
+    return torch.device("cpu")
 
 
 _planes = lambda v, dt: np.full((5, 8, 128), v, dt)  # noqa: E731
@@ -183,6 +206,41 @@ ENTRY_POINTS = {
             np.zeros((4, 3), np.float32),
             np.eye(3, dtype=np.float32)[None].repeat(2, 0), k=2, **kw),
         lambda r: r.device),
+    "Robot": (
+        lambda **kw: trobot.Planar(
+            "planar_5", [[-0.5, 0.5], [-0.5, 0.5], [0, 0]], [0, 0, 1], **kw),
+        lambda r: r.model.axes.device),
+    "make_robot": (
+        lambda **kw: trobot.make_robot(load_problem("ur10", "rot_free"),
+                                       **kw),
+        lambda r: r._spheres["thresholds"].device),
+    "model_from_rob": (
+        lambda **kw: tchain.model_from_rob(parse_rob(_PLANAR_ROB), **kw),
+        lambda m: m.R_parent.device),
+    "kinematic_model_from_numpy": (
+        lambda **kw: tchain.kinematic_model_from_numpy(
+            [-1, 0], [False, True], np.eye(3)[:2], np.tile(np.eye(3), (2, 1, 1)),
+            np.zeros((2, 3)), [-1.0, 0.0], [1.0, 0.5], **kw),
+        lambda m: m.qmax.device),
+    "scan_arc": (
+        lambda **kw: tpaths.scan_arc([0.75, 0.75, 0.0], num_points=4, **kw),
+        _numpy_out),
+    "arc_interpolate": (
+        lambda **kw: tpaths.arc_interpolate(*_ARC, 0.5, **kw),
+        _numpy_out),
+    "linear_interpolate": (
+        lambda **kw: tpaths.linear_interpolate(_ARC[0], _ARC[0], 0.5, **kw),
+        _numpy_out),
+    "get_arc_path": (
+        lambda **kw: tpaths.get_arc_path(*_ARC, 1.0, 3, **kw),
+        _numpy_out),
+    "get_linear_path": (
+        lambda **kw: tpaths.get_linear_path(_ARC[0], _ARC[0], 1.0, 3, **kw),
+        _numpy_out),
+    "get_so3_grid": (
+        lambda **kw: tgrids.get_so3_grid(4, [0, 0, 1], [0.0, 0.0, 0.0], 2,
+                                         **kw),
+        _numpy_out),
 }
 
 
@@ -232,3 +290,24 @@ def test_raycast_depth_matches_jax(scene):
     true = depths[0] / 1000.0
     hit = (rt > 0) & (true > 0)
     assert np.median(np.abs(rt[hit] - true[hit])) < 0.01
+
+
+def test_make_grid_dtype_and_unused_arguments_match_jax(scene):
+    """Arguments the JAX functions take and the port had dropped."""
+    gt = ttsdf.make_grid((4, 4, 4), (0, 0, 0), 0.01, with_color=True,
+                         dtype=torch.float64, device="cpu")
+    gj = jtsdf.make_grid((4, 4, 4), (0, 0, 0), 0.01, with_color=True,
+                         dtype=jnp.float16)
+    assert gt.sdf.dtype == gt.weight.dtype == gt.color.dtype == torch.float64
+    assert gj.sdf.dtype == gj.color.dtype == jnp.float16
+    assert gt.origin.dtype == gt.voxel_size.dtype == torch.float32
+    assert gj.origin.dtype == jnp.float32
+    g = ttsdf.make_grid((8, 8, 8), (0, 0, 0), 0.01, device="cpu")
+    a = ttsdf.extract_surface_points(g, 1.0, max_points=7)
+    b = ttsdf.extract_surface_points(g, 1.0)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert a[0].shape == (512, 3)  # the fixed shape, whatever max_points
+    p = tfusion.fuse_frameset(_small_frames(), dims=_SMALL[0],
+                              origin=_SMALL[1], voxel_size=_SMALL[2],
+                              weight_min=3.0, device="cpu")
+    assert p.grid.sdf.shape[0] > 0
