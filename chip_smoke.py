@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port once on one CUDA card: the fusion paths
-and the planning and capture half of the scan loop.
+"""Drive the PyTorch/CUDA port once on one CUDA card: the fusion paths,
+the flagship scan through its entry point and the roadmap layer.
 
     python3 chip_smoke.py
 
@@ -45,24 +45,42 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
               plain versions, with times; each arm's device time at 2,048
               and 4,096 steps beside the library call's, at other grids
               (blocks an SM), and the time of one step
- 13. scan     the planning and capture half of the scan loop on the card:
-              load_problem("ur10", "rot_free") -> make_robot; FK of the 500
-              golden configurations against data/golden/wtraj.txt (position
-              < 5e-5 m, |quat . conj| > 1 - 1e-5); scan_arc of 64 waypoints
-              -> one seeded IK batch of 1,024 problems (16 restarts a
-              waypoint, max_iters=100); camera-link positions by FK of the
-              solved configurations; 12 pictures of the banana at 640x480
-              -> FusionPipeline(brick, 256^3, color) -> marching cubes ->
-              mean distance of the mesh's vertices to the ground-truth
-              triangles (finite and under two voxels). Prints the solved
-              waypoints of 64, the IK batch's ms (CUDA events; a profiler
-              run of a second batch gives its kernels' count and
-              device-busy ms), the FK's ms and the stage times
+ 13. scan     the scan loop through its entry point on the card:
+              make_robot for ur10 / rot_free; FK of the 500 golden
+              configurations against data/golden/wtraj.txt (position
+              < 5e-5 m, |quat . conj| > 1 - 1e-5); the IK fallback's
+              routine alone, one seeded batch of 1,024 problems (scan_arc
+              of 64 waypoints x 16 random restarts, max_iters=100), timed
+              and under the profiler; then apps.scan.run_scan on the
+              committed roadmap graph/ur10/rot_free with 500 waypoints, 12
+              pictures, fusion at 256^3 (brick engine) and the fuse route
+              only, into a temporary directory. Prints the waypoints
+              solved, carried by the roadmap (solve_batch) and rescued by
+              the IK fallback beside the JAX package's counts, the worst
+              FK miss of a solved configuration (read back from
+              ctraj.txt), the plan's seconds and ms a waypoint, a second
+              solve_batch of 32 waypoints timed and under the profiler
+              (kernels and copies, busy share), the stage times, the mean
+              distance of the fused mesh's vertices to the ground-truth
+              triangles and run_scan's Chamfer. Fails under 490 solved,
+              at a miss of 1e-3 m or more, when the roadmap carries 5%
+              fewer than the JAX package, or when the mesh is not within
+              two voxels of the ground truth
+ 14. roadmap  GraphCore built from native/graphcore.cpp and run natively
+              on the rot_fixed workspace graph, equal to its Python
+              fallback; the four committed UR10 roadmaps loaded onto the
+              card (rot_fixed_coherent with floor_check=False) and
+              evaluate_roadmap against the CPU test's values (counts
+              equal, the two ratios within 1e-5 relative); one
+              build_roadmap of ur10 / rot_free at 40 workspace nodes (a
+              reduced depth) into a temporary directory, every configured
+              node within 1e-3 m of its point by FK. Nothing is written
+              under graph/
 Launch counters are zeroed just before phase 5 and read after phase 5 (one
 bench batch) and after phase 6 (K1 and K2), zeroed before and read after
-each of phases 7 and 8 (K3), 11 (every ablation arm), 12 (every probe
-arm) and 13 (K1 and K2 again): each kernel must have been launched by its
-paths.
+each of phases 7 and 8 (K3), 11 (every ablation arm) and 12 (every probe
+arm), and zeroed just before run_scan in phase 13 and read just after it
+(K1 and K2 again): each kernel must have been launched by its paths.
 
 The line before the last is a JSON summary of the kernels. For each:
   ms, device_ms   the kernel's device time per launch: 20 launches
@@ -124,6 +142,29 @@ BANANA_MESH = os.path.join(
 D435 = dict(fx=615.6707153320312, fy=615.962158203125,
             cx=326.0557861328125, cy=240.55592346191406)
 GOLDEN = os.path.join(REPO, "data/golden")
+NUM = r"-?\d+\.?\d*(?:[eE][+-]?\d+)?"
+# the JAX package's counts on the 500-waypoint scan arc over
+# graph/ur10/rot_free, from one CPU run (tests/test_torch_scan.py holds
+# the port to them): carried by the roadmap, and solved after the IK
+# fallback
+JAX_CARRIED, JAX_SOLVED = 485, 500
+# the committed UR10 roadmaps: problem, floor_check, and the
+# evaluate_roadmap metrics (nodes, edges, configured, disconnection %,
+# distance ratio rad/m) that tests/test_torch_grr.py asserts on the CPU
+ROADMAPS = {
+    "rot_free": ("rot_free", None,
+                 (500, 501, 174, 2.2988505747126435, 201.25680541992188)),
+    "rot_fixed": ("rot_fixed", None,
+                  (3299, 16642, 2373, 1.912130914265386, 6.28181266784668)),
+    # built without the floor check (ADVICE.md): 772 of its 2,683
+    # configurations fail the default validator
+    "rot_fixed_coherent": ("rot_fixed", False,
+                           (3299, 16642, 2683, 4.443774949160201,
+                            9.52048397064209)),
+    "rot_variable_yaw": ("rot_variable_yaw", None,
+                         (5788, 30842, 2481, 21.350949886639043,
+                          18.51347541809082)),
+}
 
 
 def phase(name, msg):
@@ -136,7 +177,7 @@ def load_golden():
     def rows(name):
         with open(os.path.join(GOLDEN, name)) as f:
             return np.array([[float(x) for x in re.findall(
-                r"-?\d+\.?\d*(?:[eE][+-]?\d+)?", line.split(",", 1)[1])]
+                NUM, line.split(",", 1)[1])]
                 for line in f])
 
     return rows("ctraj.txt").astype(np.float32), rows("wtraj.txt")
@@ -837,17 +878,43 @@ def main():
           + ", ".join(f"{a} {v['library_ms']:.5f}"
                       for a, v in probe_arms.items()))
 
-    # --- 13. the planning and capture half of the scan loop --------------
-    from reconplan_tpu_torch.grr import scan_arc
-    from reconplan_tpu_torch.io.config import load_problem
-    from reconplan_tpu_torch.kin import fk_all, make_robot
-    from reconplan_tpu_torch.utils.profiling import StageTimer
+    # --- 13. the scan loop through its entry point ------------------------
+    import tempfile
 
-    active_mask.launches = 0
-    brick_integrate.launches = 0
-    timer = StageTimer()
-    with timer.stage("robot", fence=dev):
-        robot = make_robot(load_problem("ur10", "rot_free"))
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from reconplan_tpu_torch.apps.scan import make_arc_schedule, run_scan
+    from reconplan_tpu_torch.grr import RedundancyResolution, scan_arc
+    from reconplan_tpu_torch.io.config import load_problem
+    from reconplan_tpu_torch.kin import make_robot
+
+    def once_ms(fn):
+        """(fn's result, its ms by CUDA events around one call)."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return out, ev[0].elapsed_time(ev[1])
+
+    def profiled(fn):
+        """(fn's result, the kernels and copies of one call under
+        torch.profiler, their ms on the card). The profiler slows the
+        host, not the kernels."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        return out, len(kernels), sum(
+            e.device_time_total for e in kernels) / 1e3
+
+    t0 = time.perf_counter()
+    robot = make_robot(load_problem("ur10", "rot_free"))
+    torch.cuda.synchronize()
+    robot_s = time.perf_counter() - t0
     n_geom = len(robot._spheres["self"][0]) + len(robot._spheres["ee"][0])
     if not (robot.device.type == "cuda" and robot.rob.num_links == 18
             and robot.num_joints == 6 and n_geom == 12
@@ -864,83 +931,101 @@ def main():
         raise AssertionError(f"golden FK: position err {fk_pos_err} m, "
                              f"min |quat . conj| {fk_dot}")
     fk_ms = events_ms(lambda: robot.solve_fk_batch(ctraj))
-    arc = scan_arc(OBJECT_POINT, radius=0.3, height=0.15, num_points=64)
-    n_way, restarts = len(arc), 16
-    targets = np.repeat(arc[:, :3], restarts, axis=0)
+    # the routine of grr_plan's IK fallback: FALLBACK_RESTARTS random
+    # seeds a waypoint in one batch, here 64 waypoints x 16 = 1,024
+    arc64 = scan_arc(OBJECT_POINT, radius=0.3, height=0.15, num_points=64)
+    n_way, restarts = len(arc64), 16
+    targets = np.repeat(arc64[:, :3], restarts, axis=0)
     seeds = robot.sample(n_way * restarts, rng=np.random.default_rng(0))
     # the solver's first call pays for the library handles of its 6x6
     # solves: a batch of two problems takes that out of the timed batch
     robot.solve_ik_batch(targets[:2], seeds[:2], max_iters=2)
-    ik_events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    with timer.stage("plan", fence=dev):
-        ik_events[0].record()
-        qf, okf = robot.solve_ik_batch(targets, seeds)
-        ik_events[1].record()
-    ik_ms = ik_events[0].elapsed_time(ik_events[1])
-    # the same batch again under the profiler: its kernels and their time
-    # on the card (the profiler slows the host, not the kernels)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as ik_prof:
-        robot.solve_ik_batch(targets, seeds)
-        torch.cuda.synchronize()
-    ik_kernels = [e for e in ik_prof.events()
-                  if e.device_type == DeviceType.CUDA]
-    ik_busy_ms = sum(e.device_time_total for e in ik_kernels) / 1e3
-    del ik_prof
+    (qf, okf), ik_ms = once_ms(lambda: robot.solve_ik_batch(targets, seeds))
+    _, ik_kernels, ik_busy_ms = profiled(
+        lambda: robot.solve_ik_batch(targets, seeds))
     okf = okf.reshape(n_way, restarts)
     solved = okf.any(dim=1)
     first = okf.to(torch.int8).argmax(dim=1)
     qs = qf.reshape(n_way, restarts, -1)[torch.arange(n_way, device=dev),
                                          first][solved]
+    n_ik_solved = int(solved.sum())
+    if n_ik_solved < 56:  # every run so far solved 64 of 64
+        raise AssertionError(f"IK solved {n_ik_solved} of {n_way} waypoints")
+    ik_reach = (robot.fk_point_batch(qs)[:, :3] - torch.as_tensor(
+        arc64[:, :3], device=dev)[solved]).norm(dim=-1).max().item()
+    if not ik_reach < 1e-3:
+        raise AssertionError(f"a solved configuration misses its waypoint "
+                             f"by {ik_reach} m")
+    phase("scan", f"UR10 on {robot.device}: {robot.rob.num_links} links, "
+          f"{robot.num_joints} active joints, {n_geom} geometry links of 32 "
+          f"spheres, make_robot {robot_s:.3f} s | golden FK of {len(ctraj)} "
+          f"configs: position err {fk_pos_err:.3g} m, min |quat . conj| "
+          f"{fk_dot:.8f}, {fk_ms:.3f} ms a batch (events)")
+    phase("scan", f"fallback IK batch: solved {n_ik_solved} of {n_way} "
+          f"waypoints ({int(okf.sum())} of {okf.numel()} restarts), worst "
+          f"FK miss {ik_reach:.3g} m | batch of {okf.numel()}, "
+          f"max_iters=100: {ik_ms:.1f} ms (CUDA events) | under the "
+          f"profiler {ik_kernels} kernels and copies, {ik_busy_ms:.1f} ms on "
+          f"the card: busy share {ik_busy_ms / ik_ms:.3f}")
+
+    # the flagship scan: 500 waypoints planned through the committed
+    # roadmap, 12 pictures, fusion at 256^3 (run_scan's own defaults but
+    # the two routes not ported yet). run_scan builds a roadmap into
+    # roadmap_dir when it finds none, which must never happen under graph/
+    roadmap = os.path.join(REPO, "graph", "ur10", "rot_free")
+    if not os.path.isfile(os.path.join(roadmap, "resolution.npz")):
+        raise AssertionError(f"no committed roadmap in {roadmap}")
+    n_scan = 500
+    active_mask.launches = 0
+    brick_integrate.launches = 0
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        scan = run_scan(roadmap_dir=roadmap, n_waypoints=n_scan, n_images=12,
+                        grid_dim=256, reconstruct="fuse", close_mesh=False,
+                        out_dir=out)
+        scan_s = time.perf_counter() - t0
+        per_scan = {"active_mask": active_mask.launches,
+                    "brick_integrate": brick_integrate.launches}
+        files = sorted(os.listdir(out))
+        with open(os.path.join(out, "ctraj.txt")) as f:
+            entries = re.findall(r"^[^,\n]+,(None|\[[^\]]*\])", f.read(),
+                                 re.M)
+        with open(os.path.join(out, "wtraj_input.txt")) as f:
+            waypoints = np.array([[float(x) for x in re.findall(
+                NUM, re.sub(r"np\.float32\(([^)]*)\)", r"\1", line))]
+                for line in f])
+        scan_v, scan_f = load_mesh(os.path.join(out, "fused_mesh.ply"))
+    if files != ["ctraj.txt", "fused_mesh.ply", "trackarr.txt", "wtraj.txt",
+                 "wtraj_input.txt"]:
+        raise AssertionError(f"run_scan wrote {files}")
+    plan = scan["plan"]
+    solved = np.array([e != "None" for e in entries])
     n_solved = int(solved.sum())
-    if n_solved < 56:  # every run so far solved 64 of 64
-        raise AssertionError(f"IK solved {n_solved} of {n_way} waypoints")
-    # every configuration called solved reaches its target by FK
-    reach = (robot.fk_point_batch(qs)[:, :3] - torch.as_tensor(
-        arc[:, :3], device=dev)[solved]).norm(dim=-1).max().item()
+    if not (len(entries) == len(waypoints) == plan["waypoints"] == n_scan
+            and n_solved == plan["carried"] + plan["rescued"]):
+        raise AssertionError(f"ctraj.txt has {len(entries)} entries, "
+                             f"{n_solved} solved, for {len(waypoints)} "
+                             f"waypoints; run_scan counted {plan}")
+    if n_solved < 490 or plan["carried"] < 0.95 * JAX_CARRIED:
+        raise AssertionError(f"solved {n_solved} of {n_scan} waypoints, "
+                             f"{plan['carried']} by the roadmap (the JAX "
+                             f"package: {JAX_SOLVED}, {JAX_CARRIED})")
+    # every solved configuration reaches its waypoint by FK on the card
+    q_solved = np.array([[float(x) for x in e.strip("[]").split()]
+                         for e in entries if e != "None"], np.float32)
+    reach = np.linalg.norm(robot.fk_point_batch(q_solved)[:, :3].cpu().numpy()
+                           - waypoints[solved, :3], axis=-1).max()
     if not reach < 1e-3:
         raise AssertionError(f"a solved configuration misses its waypoint "
                              f"by {reach} m")
-    _, t_links = fk_all(robot.model, robot._full_config(qs))
-    cam_positions = t_links[:, robot.camera_link].cpu().numpy()
-    pick = np.linspace(0, len(qs) - 1, 12).astype(int)
-    with timer.stage("capture", fence=dev):
-        cam = SplatCamera(**D435, device=dev).add_mesh_file(
-            BANANA_MESH, translate=OBJECT_POINT)
-        shots = [cam.take_picture(cam_positions[i], OBJECT_POINT)
-                 for i in pick]
-    frames = FrameSet(depth=torch.stack([s[0] for s in shots]),
-                      color=torch.stack([s[1] for s in shots]),
-                      poses=np.stack([s[2] for s in shots]).astype(np.float32),
-                      depth_scale=1000.0, intrinsics=cam.intrinsics)
-    coverage = (frames.depth > 0).float().mean().item()
-    scan_dim = 256
-    scan_voxel = 0.3 / (scan_dim - 1)
-    with timer.stage("fuse", fence=dev):
-        scan_pipe = FusionPipeline(
-            dims=(scan_dim,) * 3,
-            origin=(OBJECT_POINT[0] - 0.15, OBJECT_POINT[1] - 0.15, -0.05),
-            voxel_size=scan_voxel, with_color=True, engine="brick",
-            device=dev)
-        scan_pipe.integrate(frames)
-    with timer.stage("extract", fence=dev):
-        scan_tris, scan_cols = scan_pipe.extract_mesh(with_colors=True)
-    per_scan = {"active_mask": active_mask.launches,
-                "brick_integrate": brick_integrate.launches}
-    if len(scan_tris) == 0:
-        raise AssertionError("the scan's mesh has no triangles")
-    with timer.stage("distance", fence=dev):
-        scan_gt_v, scan_gt_f = load_mesh(BANANA_MESH)
-        scan_gt = torch.as_tensor(
-            (scan_gt_v + np.asarray(OBJECT_POINT))[scan_gt_f],
-            dtype=torch.float32, device=dev)
-        mesh_to_gt = points_to_mesh_distance(
-            torch.unique(scan_tris.reshape(-1, 3), dim=0), scan_gt)
-        mesh_to_gt_mm = mesh_to_gt.mean().item() * 1e3
-    if not (torch.isfinite(scan_tris).all() and torch.isfinite(scan_cols).all()
-            and math.isfinite(mesh_to_gt_mm)
+    scan_voxel = 0.3 / (256 - 1)
+    scan_gt_v, scan_gt_f = load_mesh(BANANA_MESH)
+    scan_gt = torch.as_tensor((scan_gt_v + np.asarray(OBJECT_POINT))[
+        scan_gt_f], dtype=torch.float32, device=dev)
+    mesh_to_gt = points_to_mesh_distance(torch.unique(torch.as_tensor(
+        scan_v, dtype=torch.float32, device=dev), dim=0), scan_gt)
+    mesh_to_gt_mm = mesh_to_gt.mean().item() * 1e3
+    if not (len(scan_f) and math.isfinite(mesh_to_gt_mm)
             and mesh_to_gt_mm < 2 * scan_voxel * 1e3):
         raise AssertionError(f"scan mesh -> ground truth {mesh_to_gt_mm} mm "
                              f"(limit {2 * scan_voxel * 1e3} mm)")
@@ -948,26 +1033,118 @@ def main():
         if count == 0:
             raise AssertionError(f"the scan's fusion never launched {name}")
         launches[name] += count
-    phase("scan", f"UR10 on {robot.device}: {robot.rob.num_links} links, "
-          f"{robot.num_joints} active joints, {n_geom} geometry links of 32 "
-          f"spheres | golden FK of {len(ctraj)} configs: position err "
-          f"{fk_pos_err:.3g} m, min |quat . conj| {fk_dot:.8f}, "
-          f"{fk_ms:.3f} ms a batch (events)")
-    phase("scan", f"IK: solved {n_solved} of {n_way} waypoints "
-          f"({int(okf.sum())} of {okf.numel()} restarts), worst FK miss "
-          f"{reach:.3g} m | batch of {okf.numel()}, max_iters=100: "
-          f"{ik_ms:.1f} ms (CUDA events) | under the profiler "
-          f"{len(ik_kernels)} kernels and copies, {ik_busy_ms:.1f} ms on "
-          f"the card: busy share {ik_busy_ms / ik_ms:.3f}")
-    phase("scan", f"12 pictures {cam.width}x{cam.height}, coverage "
-          f"{coverage:.3%} | {len(scan_tris)} triangles at {scan_dim}^3, "
-          f"voxel {scan_voxel * 1e3:.4f} mm | mesh -> ground truth mean "
+    stages = scan["stage_timings"]
+    # a second solve_batch of the first 32 waypoints, timed alone and
+    # under the profiler
+    grr = RedundancyResolution(robot)
+    grr.load_resolution_graph(os.path.join(roadmap, "resolution.npz"))
+    grr.load_workspace_graph(os.path.join(roadmap, "workspace.npz"))
+    arc = make_arc_schedule(1, n_scan)[0]
+    _, sb_ms = once_ms(lambda: grr.solve_batch(arc[:32]))
+    _, sb_kernels, sb_busy_ms = profiled(lambda: grr.solve_batch(arc[:32]))
+    phase("scan", f"run_scan on graph/ur10/rot_free, {n_scan} waypoints: "
+          f"solved {n_solved} ({plan['carried']} carried by the roadmap, "
+          f"{plan['rescued']} rescued by the IK fallback; the JAX package "
+          f"on the CPU: {JAX_CARRIED} and {JAX_SOLVED}), worst FK miss "
+          f"{reach:.3g} m | plan {stages['plan']:.3f} s, "
+          f"{stages['plan'] * 1e3 / n_scan:.2f} ms a waypoint | "
+          f"run_scan {scan_s:.3f} s")
+    phase("scan", f"solve_batch of 32 waypoints: {sb_ms:.1f} ms (CUDA "
+          f"events), {sb_ms / 32:.2f} ms a waypoint | under the profiler "
+          f"{sb_kernels} kernels and copies ({sb_kernels / 32:.0f} a "
+          f"waypoint), {sb_busy_ms:.2f} ms on the card: busy share "
+          f"{sb_busy_ms / sb_ms:.3f}")
+    phase("scan", f"12 pictures -> {len(scan_f)} triangles at 256^3, voxel "
+          f"{scan_voxel * 1e3:.4f} mm | mesh -> ground truth mean "
           f"{mesh_to_gt_mm:.4f} mm, max {mesh_to_gt.max().item() * 1e3:.4f} "
-          f"mm | K2 / K1 launches {per_scan['active_mask']} / "
-          f"{per_scan['brick_integrate']} | stages s (synchronised): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in timer.stages)
+          f"mm | fuse Chamfer {scan['fuse_chamfer_mm']:.4f} mm (mesh -> gt "
+          f"{scan['fuse_chamfer_ab_mm']:.4f}, gt -> mesh "
+          f"{scan['fuse_chamfer_ba_mm']:.4f}) | K2 / K1 launches "
+          f"{per_scan['active_mask']} / {per_scan['brick_integrate']} | "
+          "stages s (synchronised): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
           + f" | {card}")
-    del scan_pipe, frames, shots, cam
+    del grr, scan_gt
+
+    # --- 14. the roadmap layer ------------------------------------------
+    from reconplan_tpu_torch.apps.redundancy import build_roadmap
+    from reconplan_tpu_torch.grr import evaluate_roadmap
+    from reconplan_tpu_torch.io.checkpoint import load_roadmap_npz
+    from reconplan_tpu_torch.utils.native import GraphCore
+
+    ws = load_roadmap_npz(os.path.join(REPO, "graph/ur10/rot_fixed",
+                                       "workspace.npz"))
+    n_ws = len(ws["points"])
+    gc = GraphCore(n_ws, ws["edges"], ws["edge_weights"])
+    if not gc.native:
+        raise AssertionError("GraphCore took its Python fallback: the "
+                             "native library did not build or load")
+    t0 = time.perf_counter()
+    labels, n_comp = gc.components()
+    hops = gc.bfs_distances(0)
+    far = int(np.argmax(hops))
+    path = gc.shortest_path(0, far)
+    ring = gc.k_layer_neighbors(0, 4)
+    gc_ms = (time.perf_counter() - t0) * 1e3
+    py = GraphCore(n_ws, ws["edges"], ws["edge_weights"])
+    py._lib = None
+    if not (np.array_equal(py.components()[0], labels)
+            and np.array_equal(py.bfs_distances(0), hops)
+            and py.shortest_path(0, far) == path
+            and sorted(py.k_layer_neighbors(0, 4)) == sorted(ring)):
+        raise AssertionError("GraphCore's native answers differ from its "
+                             "Python fallback's")
+    phase("roadmap", f"GraphCore native on graph/ur10/rot_fixed ({n_ws} "
+          f"nodes, {len(ws['edges'])} edges): {n_comp} components, "
+          f"shortest path 0 -> {far} of {len(path)} nodes, {len(ring)} "
+          f"nodes within 4 hops, {gc_ms:.3f} ms for the four queries; equal "
+          "to the Python fallback")
+    for name, (problem, floor_check, want) in ROADMAPS.items():
+        res = RedundancyResolution(make_robot(load_problem("ur10", problem),
+                                              floor_check=floor_check))
+        folder = os.path.join(REPO, "graph", "ur10", name)
+        res.load_resolution_graph(os.path.join(folder, "resolution.npz"))
+        res.load_workspace_graph(os.path.join(folder, "workspace.npz"))
+        res.load_solver_graph(os.path.join(folder, "solver.npz"))
+        if not (res.configs_t.is_cuda and res.points_t.is_cuda):
+            raise AssertionError(f"{name}: the roadmap is not on the card")
+        m = evaluate_roadmap(res, verbose=False)
+        got = tuple(m[k] for k in ("n_nodes", "n_edges", "n_configured",
+                                   "disconnection_ratio", "distance_ratio"))
+        # counts exact; the two ratios within 1e-5 relative: the card
+        # contracts multiply-adds into FMAs, and the quaternion term
+        # 1 - |q1 . q2| of a millimetre edge keeps few digits in f32
+        # (rot_free's distance ratio reads 1.6e-6 apart)
+        if not (got[:3] == want[:3] and all(
+                abs(g - w) <= 1e-5 * abs(w) for g, w in zip(got[3:],
+                                                            want[3:]))):
+            raise AssertionError(f"{name}: evaluate_roadmap gives {got}, "
+                                 f"the CPU test {want}")
+        phase("roadmap", f"{name} on the card (floor_check={floor_check}): "
+              f"{got[0]} nodes, {got[1]} edges, {got[2]} configured, "
+              f"disconnection {got[3]:.6f} %, distance ratio {got[4]:.6f} "
+              f"rad/m ({got[4] / want[4] - 1:+.2e} from the CPU test's)")
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        res, m = build_roadmap("ur10", "rot_free", n_pos_points=40,
+                               out_dir=out, verbose=False)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        files = sorted(os.listdir(out))
+    if files != ["resolution.npz", "solver.npz", "workspace.npz"]:
+        raise AssertionError(f"build_roadmap wrote {files}")
+    miss = np.linalg.norm(res.robot.fk_point_batch(res.configs)[:, :3]
+                          .cpu().numpy() - res.points[:, :3], axis=-1).max()
+    if not (m["n_configured"] > 0 and miss < 1e-3):
+        raise AssertionError(f"build_roadmap configured {m['n_configured']} "
+                             f"nodes, worst FK miss {miss} m")
+    phase("roadmap", f"build_roadmap ur10 rot_free, 40 nodes (a reduced "
+          f"depth: the committed roadmap has 500, and 40 keep the smoke "
+          f"inside its time limit): {build_s:.2f} s, {m['n_configured']} "
+          f"of {m['n_nodes']} configured, disconnection "
+          f"{m['disconnection_ratio']:.3f} %, distance ratio "
+          f"{m['distance_ratio']:.3f} rad/m, worst FK miss {miss:.3g} m | "
+          "written to a temporary directory")
 
     for arm, count in {**ablate_launches, **probe_launches}.items():
         if count == 0:

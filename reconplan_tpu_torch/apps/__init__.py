@@ -1,0 +1,9 @@
+"""Application entry points, mirroring the JAX package's CLIs:
+
+  python -m reconplan_tpu_torch.apps.redundancy ur10 rot_variable_yaw
+      build a GRR roadmap (reference: ``python redundancy.py ...``)
+  python -m reconplan_tpu_torch.apps.scan
+      the scan-plan-capture-fuse loop (reference: ``python main.py``)
+
+Each takes ``--device`` (default: the card).
+"""

@@ -1,0 +1,393 @@
+"""Flagship scan-plan-capture-reconstruct app — port of
+``reconplan_tpu.apps.scan`` (reference ``main.py``), fuse route.
+
+Pipeline (reference ``main.py:18-254``):
+  1. load (or build) the UR10 GRR roadmap;
+  2. construct the 500-pose tilted look-at arc around the object
+     (``main.py:68-136``) -> wtraj_input.txt;
+  3. solve it sequentially with GRR threading curr_config
+     (``grr_plan``, ``main.py:257-307``) -> ctraj.txt, trackarr.txt;
+  4. FK the joint trajectory -> wtraj.txt (``main.py:153-165``);
+  5. "execute": sample n_images camera poses evenly along the trajectory
+     and render RGBD from the wrist D435 frame with the splat camera;
+  6. reconstruct: TSDF fusion with the FK camera poses + marching cubes
+     -> fused_mesh.ply, and the Chamfer distance to the YCB ground truth.
+
+Everything runs on one device (default: the card); the brick engine's
+kernels fuse on the card, the dense engine on the CPU. The ICP stitch
+route and the Poisson close route are not ported yet: asking for them
+raises ``NotImplementedError`` (ROADMAP.md Slices C and D).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from reconplan_tpu_torch.grr.paths import scan_arc
+from reconplan_tpu_torch.io.frames import FrameSet
+from reconplan_tpu_torch.io.meshio import load_mesh, save_ply
+from reconplan_tpu_torch.io.render import SplatCamera
+from reconplan_tpu_torch.kin.chain import fk_all
+from reconplan_tpu_torch.recon.fusion import FusionPipeline
+from reconplan_tpu_torch.recon.metrics import chamfer_to_mesh
+from reconplan_tpu_torch.utils.device import resolve_device
+
+OBJECT_POINT = [0.75, 0.75, 0.0]  # main.py:45
+BANANA_MESH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "data", "objects", "011_banana", "poisson", "nontextured.ply",
+)
+# D435 intrinsics hardcoded at main.py:241-244
+D435 = dict(fx=615.6707153320312, fy=615.962158203125,
+            cx=326.0557861328125, cy=240.55592346191406)
+# random restarts a waypoint of grr_plan's IK fallback (reach-boundary
+# poses are seed-sensitive; one batched IK covers them all)
+FALLBACK_RESTARTS = 16
+
+
+def grr_plan(grr, workspace_path, track_array=None, batched=True,
+             ik_fallback=True, stats=None):
+    """GRR solve threading curr_config (``main.py:257-307``).
+
+    ``batched=True`` runs the whole path through
+    ``RedundancyResolution.solve_batch``; ``batched=False`` replays the
+    reference's Python loop with TrackArray diagnostics.
+
+    ``ik_fallback`` retries waypoints the roadmap solve could not reach
+    with plain seeded IK (the reference solve() falls back to regular IK
+    when the roadmap has nothing to offer): one IK batch of
+    ``FALLBACK_RESTARTS`` random seeds a failed waypoint, the failed
+    waypoints padded to a power of two (at least 8) as the JAX package
+    pads them, so that both draw the same seeds.
+
+    ``stats``, when given, is a dict whose counts ``waypoints``,
+    ``carried`` (solved by the roadmap) and ``rescued`` (by the fallback)
+    go up by this path's.
+    """
+    if track_array is None:
+        track_array = []
+    if batched:
+        qs, ok, track = grr.solve_batch(
+            np.asarray(workspace_path), return_track=True
+        )
+        ok = ok.tolist()
+        config_path = [q if o else None for q, o in zip(qs, ok)]
+        n_carried = sum(ok)
+        # same tracking-mode diagnostic solve() appends (min joint distance
+        # to the roadmap seed, resolution.py:322) so trackarr.txt stays
+        # comparable to the reference's golden file.
+        track_array.extend(float(t) for t in track)
+        if ik_fallback and not all(ok):
+            robot = grr.robot
+            bad = [i for i, o in enumerate(ok) if not o]
+            B = max(8, 1 << int(np.ceil(np.log2(len(bad)))))
+            R = FALLBACK_RESTARTS
+            pts = np.asarray(workspace_path)[
+                np.pad(bad, (0, B - len(bad)), mode="edge")
+            ]
+            # local Generator: deterministic fallback seeds without
+            # mutating the robot's shared RNG stream
+            seeds = robot.sample(B * R, rng=np.random.default_rng(0))
+            qf, okf = robot.solve_ik_batch(
+                np.repeat(pts[:, :3], R, axis=0), seeds
+            )
+            qf = qf.cpu().numpy().reshape(B, R, -1)
+            okf = okf.cpu().numpy().reshape(B, R)
+            n_rescued = 0
+            for j, i in enumerate(bad):
+                hit = np.flatnonzero(okf[j])
+                if len(hit):
+                    config_path[i] = qf[j, hit[0]]
+                    n_rescued += 1
+            if n_rescued:
+                print(f"ik fallback rescued {n_rescued}/{len(bad)} waypoints")
+    else:
+        config_path = []
+        curr = None
+        for waypoint in workspace_path:
+            q = grr.solve(
+                list(waypoint), curr_config=curr, none_on_fail=True,
+                TrackArray=track_array,
+            )
+            config_path.append(q)
+            if q is not None:
+                curr = q
+    n_bad = sum(1 for q in config_path if q is None)
+    if stats is not None:
+        n_solved = len(config_path) - n_bad
+        if not batched:
+            n_carried = n_solved
+        for key, n in (("waypoints", len(config_path)),
+                       ("carried", n_carried),
+                       ("rescued", n_solved - n_carried)):
+            stats[key] = stats.get(key, 0) + n
+    if n_bad:
+        print(f"\n{n_bad} invalid configurations found\n")
+    return config_path
+
+
+def make_arc_schedule(n_arcs, per_arc, base_az=3 * np.pi / 4, device=None):
+    """The scan's viewpoint schedule (``main.py:68-136`` arc, widened).
+
+    1 arc = the reference demo's single overhead arc. >1 arcs = the
+    coverage schedule: alternating MID (r=0.25, h=0.10) and LOW grazing
+    (r=0.22, h=0.035) arcs spread over 360 deg azimuth. The look-at
+    quaternions are computed on ``device`` (default: the card).
+    """
+    if n_arcs <= 1:
+        return [scan_arc(OBJECT_POINT, radius=0.3, height=0.15,
+                         num_points=per_arc, device=device)]
+    return [
+        scan_arc(
+            OBJECT_POINT,
+            radius=0.25 if a % 2 == 0 else 0.22,
+            height=0.10 if a % 2 == 0 else 0.035,
+            num_points=per_arc,
+            azimuth=base_az + a * 2 * np.pi / n_arcs,
+            max_horiz=1.03,  # stay inside the UR10 look-at reach
+            device=device,
+        )
+        for a in range(n_arcs)
+    ]
+
+
+def run_scan(
+    roadmap_dir=None,
+    n_waypoints=500,
+    n_images=12,
+    out_dir="scan_output",
+    reconstruct="fuse",  # "fuse"; "stitch" | "both" are not ported yet
+    grid_dim=256,
+    n_roadmap_nodes=500,
+    n_arcs=1,
+    rotation_type=None,
+    engine=None,  # "brick" | "dense" | None = brick on the card, dense on CPU
+    close_mesh="auto",  # only False is ported: the Poisson pass is not
+    close_depth=192,
+    verbose=True,
+    device=None,
+):
+    """Closed-loop scan-plan-capture-fuse (``main.py`` parity) on
+    ``device`` (default: the card).
+
+    ``n_arcs`` > 1 plans additional scan arcs at rotated azimuths;
+    waypoints and captures split evenly across arcs. Returns the result
+    dict of the JAX package's ``run_scan`` for its fuse route:
+    ``fuse_chamfer_mm`` (+ ``_ab_`` / ``_ba_``), ``best_mesh``,
+    ``best_chamfer_mm`` and ``stage_timings``; and ``device``, the
+    device it ran on, and ``plan``, the counts of :func:`grr_plan`'s
+    ``stats`` over all arcs.
+    """
+    if reconstruct in ("stitch", "both"):
+        raise NotImplementedError(
+            f"reconstruct={reconstruct!r}: the ICP stitch route is not "
+            "ported yet (ROADMAP.md Queue 1, Slice C); use reconstruct="
+            "\"fuse\"")
+    if close_mesh:
+        raise NotImplementedError(
+            f"close_mesh={close_mesh!r}: the Poisson close route is not "
+            "ported yet (ROADMAP.md Queue 1, Slice D); pass close_mesh=False")
+    if reconstruct != "fuse":
+        raise ValueError(f"unknown reconstruct={reconstruct!r}")
+    device = resolve_device(device)
+    os.makedirs(out_dir, exist_ok=True)
+    from reconplan_tpu_torch.grr import RedundancyResolution
+    from reconplan_tpu_torch.io.config import load_problem
+    from reconplan_tpu_torch.kin.robot import make_robot
+    from reconplan_tpu_torch.utils.profiling import StageTimer
+
+    timer = StageTimer()
+
+    if rotation_type is None:
+        # infer the GRR problem from the roadmap path so shipped variants
+        # (rot_free scan arc, rot_fixed, rot_variable_yaw) all work
+        rotation_type = "rot_free"
+        for rt in ("rot_variable_yaw", "rot_fixed"):
+            if roadmap_dir and rt in str(roadmap_dir):
+                rotation_type = rt
+    opts = load_problem("ur10", rotation_type)
+    robot = make_robot(opts, device=device)
+    grr = RedundancyResolution(robot, device)
+    if roadmap_dir and os.path.exists(os.path.join(roadmap_dir, "resolution.npz")):
+        grr.load_resolution_graph(os.path.join(roadmap_dir, "resolution.npz"))
+        grr.load_workspace_graph(os.path.join(roadmap_dir, "workspace.npz"))
+    else:
+        if verbose:
+            print("No roadmap found - building one")
+        from reconplan_tpu_torch.apps.redundancy import build_roadmap
+
+        grr, _ = build_roadmap(
+            "ur10", "rot_free", n_pos_points=n_roadmap_nodes,
+            sampling_method="random", out_dir=roadmap_dir, verbose=verbose,
+            device=device,
+        )
+
+    # ---- arc construction (main.py:68-136) ----
+    per_arc = max(n_waypoints // max(n_arcs, 1), 2)
+    arcs = make_arc_schedule(n_arcs, per_arc, device=device)
+    arc = np.concatenate(arcs, axis=0)
+    with open(os.path.join(out_dir, "wtraj_input.txt"), "w") as f:
+        for p in arc:
+            f.write(",".join(map(str, [list(p[:3]), list(p[3:7])])) + "\n")
+
+    # ---- GRR plan (main.py:142-151) ----
+    track = []
+    t0 = time.time()
+    config_path = []
+    plan_stats = {}
+    with timer.stage("plan", fence=device):
+        for a in arcs:
+            config_path.extend(grr_plan(grr, a, track, stats=plan_stats))
+    if verbose:
+        ok = sum(1 for q in config_path if q is not None)
+        print(f"grr_plan: {ok}/{len(arc)} waypoints solved in {time.time()-t0:.1f}s")
+    maneuver_time = 10.0  # main.py:145
+    times = np.linspace(0, maneuver_time, len(config_path))
+    with open(os.path.join(out_dir, "ctraj.txt"), "w") as f:
+        for t, q in zip(times, config_path):
+            f.write(f"{t},{np.array2string(np.asarray(q), separator=' ') if q is not None else None}\n")
+    with open(os.path.join(out_dir, "trackarr.txt"), "w") as f:
+        for entry in track:
+            f.write(f"{entry}\n")
+
+    # ---- FK workspace trajectory (main.py:153-165) ----
+    valid = [q for q in config_path if q is not None]
+    if not valid:
+        raise RuntimeError("no valid configurations solved")
+    qs = robot._tensor(np.asarray(valid, dtype=np.float32))
+    ee = robot.fk_point_batch(qs).cpu().numpy()
+    with open(os.path.join(out_dir, "wtraj.txt"), "w") as f:
+        for t, p in zip(times, ee):
+            f.write(f"{t},[array({list(p[:3])}), array({list(p[3:7])})]\n")
+
+    # ---- capture (main.py:213-234; bullet_camera.py) ----
+    cam = SplatCamera(**D435, device=device)
+    cam.add_mesh_file(BANANA_MESH, translate=OBJECT_POINT)
+    # camera positions: one batched FK of the d435 color frame along the
+    # trajectory
+    _, t_links = fk_all(robot.model, robot._full_config(qs))
+    cam_positions = t_links[:, robot.camera_link].cpu().numpy()
+    pick = np.linspace(0, len(qs) - 1, n_images).astype(int)
+    depths, colors, poses = [], [], []
+    with timer.stage("capture", fence=device):
+        for i in pick:
+            d, c, T = cam.take_picture(cam_positions[i], OBJECT_POINT)
+            depths.append(d)
+            colors.append(c)
+            poses.append(T)
+    frames = FrameSet(
+        depth=torch.stack(depths),
+        color=torch.stack(colors),
+        poses=np.stack(poses).astype(np.float32),
+        depth_scale=1000.0,
+        intrinsics=(D435["fx"], D435["fy"], D435["cx"], D435["cy"]),
+    )
+    if verbose:
+        cover = (frames.depth > 0).float().mean(dim=(1, 2))
+        print(f"captured {n_images} frames, mean coverage "
+              f"{cover.mean().item():.3%}")
+
+    # ---- reconstruction ----
+    results = {"device": str(device), "plan": plan_stats}
+    gt_v, gt_f = load_mesh(BANANA_MESH)
+    gt_v = gt_v + np.asarray(OBJECT_POINT)
+
+    t0 = time.time()
+    if engine is None:
+        # the brick engine's kernels need the card; the dense engine is
+        # the CPU path
+        engine = "brick" if device.type == "cuda" else "dense"
+    pipe = FusionPipeline(
+        dims=(grid_dim,) * 3,
+        origin=(OBJECT_POINT[0] - 0.15, OBJECT_POINT[1] - 0.15, -0.05),
+        voxel_size=0.3 / (grid_dim - 1),
+        with_color=True,
+        engine=engine,
+        device=device,
+    )
+    with timer.stage("fuse", fence=device):
+        pipe.integrate(frames)
+        mesh, mesh_colors = pipe.extract_mesh(with_colors=True)
+    if verbose:
+        print(f"TSDF fusion + MC: {time.time()-t0:.1f}s, {len(mesh)} triangles")
+    save_ply(
+        os.path.join(out_dir, "fused_mesh.ply"),
+        triangles=mesh,
+        colors=mesh_colors.reshape(-1, 3) if len(mesh) else None,
+    )
+    if len(mesh):
+        ch, ab, ba = chamfer_to_mesh(mesh.reshape(-1, 3), gt_v, gt_f)
+        results["fuse_chamfer_mm"] = ch * 1000
+        results["fuse_chamfer_ab_mm"] = ab * 1000
+        results["fuse_chamfer_ba_mm"] = ba * 1000
+        results["best_mesh"] = "open"
+        results["best_chamfer_mm"] = results["fuse_chamfer_mm"]
+        if verbose:
+            print(
+                f"fused mesh Chamfer vs GT: {ch*1000:.3f} mm "
+                f"(mesh->gt {ab*1000:.3f}, gt->mesh {ba*1000:.3f})"
+            )
+
+    results["stage_timings"] = timer.as_dict()
+    if verbose:
+        print(timer.report())
+    return results
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--roadmap", default="graph/ur10/rot_free")
+    ap.add_argument("--waypoints", type=int, default=500)
+    ap.add_argument("--images", type=int, default=12)
+    ap.add_argument("--out", default="scan_output")
+    ap.add_argument("--reconstruct", default="both",
+                    choices=["fuse", "stitch", "both"],
+                    help="only fuse is ported; stitch and both raise")
+    ap.add_argument("--grid", type=int, default=256)
+    ap.add_argument("--arcs", type=int, default=1,
+                    help="scan arcs at rotated azimuths (1 = reference demo)")
+    ap.add_argument("--rotation-type", default=None,
+                    help="GRR problem variant (default: infer from roadmap)")
+    ap.add_argument("--engine", default=None, choices=["brick", "dense"],
+                    help="TSDF engine (default: brick on the card, dense on "
+                    "the CPU)")
+    ap.add_argument("--close-mode", default="auto",
+                    choices=["auto", "always", "never"],
+                    help="Poisson closing pass; only never is ported, auto "
+                    "and always raise")
+    ap.add_argument("--no-close", action="store_true",
+                    help="alias for --close-mode never")
+    ap.add_argument("--close-depth", type=int, default=192,
+                    help="Poisson grid resolution of the closing pass")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the cuda card)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace to DIR")
+    args = ap.parse_args(argv)
+    from reconplan_tpu_torch.utils.profiling import maybe_trace
+
+    with maybe_trace(args.profile):
+        run_scan(
+            roadmap_dir=args.roadmap,
+            n_waypoints=args.waypoints,
+            n_images=args.images,
+            out_dir=args.out,
+            reconstruct=args.reconstruct,
+            grid_dim=args.grid,
+            n_arcs=args.arcs,
+            rotation_type=args.rotation_type,
+            engine=args.engine,
+            close_mesh=(False if (args.no_close or args.close_mode == "never")
+                        else True if args.close_mode == "always" else "auto"),
+            close_depth=args.close_depth,
+            device=args.device,
+        )
+
+
+if __name__ == "__main__":
+    main()

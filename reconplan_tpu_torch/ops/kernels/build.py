@@ -13,7 +13,9 @@ kernels equal their plain PyTorch versions bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -83,13 +85,32 @@ def source_hash() -> str:
     return h.hexdigest()
 
 
+@contextlib.contextmanager
+def build_lock():
+    """Hold an exclusive lock on ``_build/.lock`` while checking and
+    building: test workers and processes that start together then build
+    a library once, and none loads a half-written one."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def up_to_date(lib: Path, digest: str) -> bool:
+    """True when ``lib`` exists and its stamp holds ``digest``."""
+    stamp = lib.with_name(lib.name + ".sha256")
+    return lib.is_file() and stamp.is_file() and stamp.read_text() == digest
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the sources into ``_build/`` unless an up-to-date library is
     there already. Returns the library's path."""
     lib = BUILD_DIR / LIB_NAME
-    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     digest = source_hash()
-    if lib.is_file() and stamp.is_file() and stamp.read_text() == digest:
+    if up_to_date(lib, digest):
         return lib
     nvcc = find_nvcc()
     if nvcc is None:
@@ -97,7 +118,14 @@ def build(verbose: bool = False) -> Path:
             "nvcc not found (neither on PATH nor under CUDA_HOME): the CUDA "
             "kernels of reconplan_tpu_torch cannot be built"
         )
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with build_lock():
+        # another process may have built it while this one waited
+        if not up_to_date(lib, digest):
+            _compile(nvcc, lib, digest, verbose)
+    return lib
+
+
+def _compile(nvcc, lib, digest, verbose):
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (src.stem + ".o") for src in sources()]
         out = Path(tmp) / LIB_NAME
@@ -112,8 +140,7 @@ def build(verbose: bool = False) -> Path:
             print("\n".join(filter(None, log)))
         os.replace(out, lib)
     (BUILD_DIR / PTXAS_LOG).write_text("\n".join(log))
-    stamp.write_text(digest)
-    return lib
+    lib.with_name(lib.name + ".sha256").write_text(digest)
 
 
 def resource_usage() -> dict:

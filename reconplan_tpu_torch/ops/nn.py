@@ -33,8 +33,17 @@ def pairwise_sqdist(x, y, precision=None, center=True):
     return torch.clamp(x2 + y2.T - 2.0 * xy, min=0.0)
 
 
+# the most entries of one distance tile (256 MB in f32): 2,048 query rows
+# against a 200,000-point surface sample would make 1.6 GB tiles, several
+# of them alive at once on the CPU
+TILE_ENTRIES = 1 << 26
+
+
 def nearest_neighbor(queries, points, valid=None, row_chunk=2048):
-    """Single nearest neighbour: (dists (Q,), idx (Q,))."""
+    """Single nearest neighbour: (dists (Q,), idx (Q,)). Queries go in
+    chunks of ``row_chunk`` rows, fewer where a chunk's tile against
+    ``points`` would pass ``TILE_ENTRIES``."""
+    row_chunk = max(1, min(row_chunk, TILE_ENTRIES // max(len(points), 1)))
     Q = queries.shape[0]
     pad = (-Q) % row_chunk
     q_padded = torch.nn.functional.pad(queries, (0, 0, 0, pad))

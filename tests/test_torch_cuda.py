@@ -8,6 +8,8 @@ nor the JAX package, so it also runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -888,3 +890,57 @@ def test_solve_ik_batch_on_the_card_reaches_its_targets(ur10_pair):
     assert q.is_cuda and ok.float().mean().item() > 0.3
     reach = (on_card.fk_point_batch(q)[:, :3] - pts[:, :3]).norm(dim=-1)
     assert reach[ok].max().item() < 1e-3
+
+
+# --- the roadmap layer and the scan on the card ---------------------------
+
+
+ROADMAP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "graph", "ur10", "rot_free")
+
+
+def test_solve_batch_on_the_card_equals_the_cpu(ur10_pair):
+    """The first 32 waypoints of the scan arc through the committed
+    roadmap: the same waypoints solved, configurations within 1e-4 rad."""
+    from reconplan_tpu_torch.apps.scan import make_arc_schedule
+    from reconplan_tpu_torch.grr import RedundancyResolution
+
+    arc = make_arc_schedule(1, 500, device="cpu")[0][:32]
+    out = []
+    for rob in ur10_pair:
+        res = RedundancyResolution(rob, rob.device)
+        res.load_resolution_graph(os.path.join(ROADMAP, "resolution.npz"))
+        res.load_workspace_graph(os.path.join(ROADMAP, "workspace.npz"))
+        assert res.configs_t.device.type == rob.device.type
+        out.append(res.solve_batch(arc, return_track=True))
+    (qc, okc, trc), (q, ok, tr) = out
+    np.testing.assert_array_equal(okc, ok)
+    assert ok.sum() >= 30
+    d = np.abs((qc - q + np.pi) % (2 * np.pi) - np.pi)[ok]
+    assert d.max() <= 1e-4
+    np.testing.assert_allclose(trc, tr, rtol=0, atol=1e-5)
+
+
+def test_graphcore_is_native_on_the_cards_machine(card):
+    from reconplan_tpu_torch.utils.native import GraphCore
+
+    g = GraphCore(4, [[0, 1], [1, 2], [2, 3]])
+    assert g.native
+    assert g.shortest_path(0, 3) == [0, 1, 2, 3]
+
+
+def test_run_scan_without_a_device_lands_on_the_card(card, tmp_path):
+    from reconplan_tpu_torch.apps.scan import run_scan
+    from reconplan_tpu_torch.ops.kernels import active_mask, brick_integrate
+
+    before = (active_mask.launches, brick_integrate.launches)
+    out = run_scan(roadmap_dir=ROADMAP, n_waypoints=24, n_images=3,
+                   grid_dim=64, reconstruct="fuse", close_mesh=False,
+                   out_dir=str(tmp_path), verbose=False)
+    assert torch.device(out["device"]).type == "cuda"
+    assert out["plan"]["waypoints"] == 24
+    assert out["plan"]["carried"] + out["plan"]["rescued"] >= 22
+    # the card's default engine is the brick engine: K2 and K1 launched
+    assert active_mask.launches > before[0]
+    assert brick_integrate.launches > before[1]
+    assert out["fuse_chamfer_mm"] < 10.0

@@ -13,6 +13,11 @@ exceptions, and no other:
   counterpart: a wrapper picks its kernel or its plain version by the
   tensors' device;
 * ``key`` (a ``jax.random`` key) is ``generator`` (a ``torch.Generator``).
+
+Not parameters, so not walked here: the scan's command line takes
+``--device`` where the JAX one takes ``--platform``, and ``run_scan``
+raises ``NotImplementedError`` for the stitch and Poisson routes, which
+are not ported yet (``tests/test_torch_scan.py``).
 """
 
 import importlib
@@ -21,11 +26,13 @@ import inspect
 import pytest
 
 MODULES = [
-    "core.grids", "core.maths", "grr.paths", "io.checkpoint", "io.config",
+    "apps.redundancy", "apps.scan", "core.grids", "core.maths",
+    "grr.nearest_neighbors", "grr.paths", "grr.quality", "grr.resolution",
+    "grr.solver", "grr.workspace", "io.checkpoint", "io.config",
     "io.frames", "io.meshio", "io.render", "kin.chain", "kin.collision",
     "kin.ik", "kin.rob_parser", "kin.robot", "ops.marching", "ops.nn",
     "ops.tsdf", "ops.tsdf_brick", "parallel.brick", "recon.fusion",
-    "recon.metrics", "utils.profiling",
+    "recon.metrics", "utils.native", "utils.profiling",
 ]
 RENAMED = {"mesh": "devices", "key": "generator"}
 DROPPED = {"interpret"}

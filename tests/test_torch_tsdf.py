@@ -6,6 +6,7 @@ packages; the JAX side runs op by op with the same w2c poses
 """
 
 import os
+import tempfile
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +14,13 @@ import pytest
 import torch
 
 from reconplan_tpu.ops import tsdf as jtsdf
+from reconplan_tpu_torch.apps import redundancy as tredundancy
+from reconplan_tpu_torch.apps import scan as tscan
 from reconplan_tpu_torch.core import grids as tgrids
+from reconplan_tpu_torch.grr import nearest_neighbors as tnn
+from reconplan_tpu_torch.grr import resolution as tres
+from reconplan_tpu_torch.grr import solver as tsolver
+from reconplan_tpu_torch.grr import workspace as tws
 from reconplan_tpu_torch.grr import paths as tpaths
 from reconplan_tpu_torch.io import render as trender
 from reconplan_tpu_torch.io.config import load_problem
@@ -134,8 +141,8 @@ def test_resolve_device_defaults_to_the_card(monkeypatch):
 
 
 _SMALL = ((16, 16, 16), (0.0, 0.0, 0.0), 0.01)
-_PLANAR_ROB = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "data", "robots", "planar_5.rob")
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PLANAR_ROB = os.path.join(_REPO, "data", "robots", "planar_5.rob")
 
 
 def _small_frames():
@@ -146,6 +153,28 @@ def _small_frames():
 
 _ARC = (np.array([0.4, 0.1, 0.3, 0.0, 0.0, 0.0, 1.0]),
         np.array([0.0, 0.0, 0.0, 0.0, 0.0, np.pi / 2]))
+
+
+def _planar():
+    """The five-link planar arm on the CPU, for the roadmap classes (each
+    takes the robot's device, and raises when asked for another)."""
+    return trobot.Planar("planar_5", [[-0.5, 0.5], [-0.5, 0.5], [0, 0]],
+                         [0, 0, 1], device="cpu")
+
+
+def _build_roadmap(**kw):
+    with tempfile.TemporaryDirectory() as out:
+        return tredundancy.build_roadmap(
+            "ur10", "rot_free", n_pos_points=4, seeds="json", out_dir=out,
+            verbose=False, **kw)
+
+
+def _run_scan(**kw):
+    with tempfile.TemporaryDirectory() as out:
+        return tscan.run_scan(
+            roadmap_dir=os.path.join(_REPO, "graph", "ur10", "rot_free"),
+            n_waypoints=2, n_images=1, grid_dim=16, reconstruct="fuse",
+            close_mesh=False, out_dir=out, verbose=False, **kw)
 
 
 def _numpy_out(result):
@@ -237,6 +266,19 @@ ENTRY_POINTS = {
     "get_linear_path": (
         lambda **kw: tpaths.get_linear_path(_ARC[0], _ARC[0], 1.0, 3, **kw),
         _numpy_out),
+    "RoadmapWorkspace": (
+        lambda **kw: tws.RoadmapWorkspace(_planar(), **kw),
+        lambda w: w.device),
+    "ExpansionSolver": (
+        lambda **kw: tsolver.ExpansionSolver(
+            tws.RoadmapWorkspace(_planar(), device="cpu"), _planar(), **kw),
+        lambda s: s.device),
+    "RedundancyResolution": (
+        lambda **kw: tres.RedundancyResolution(_planar(), **kw),
+        lambda r: r.configs_t.device),
+    "DenseTopK": (lambda **kw: tnn.DenseTopK(**kw), lambda d: d.device),
+    "build_roadmap": (_build_roadmap, lambda r: r[0].configs_t.device),
+    "run_scan": (_run_scan, lambda r: torch.device(r["device"])),
     "get_so3_grid": (
         lambda **kw: tgrids.get_so3_grid(4, [0, 0, 1], [0.0, 0.0, 0.0], 2,
                                          **kw),
