@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port once on one CUDA card: the fusion paths,
-the flagship scan through its entry point and the roadmap layer.
+the flagship scan through its entry point with every route, the roadmap
+layer and the stitch.
 
     python3 chip_smoke.py
 
@@ -53,8 +54,10 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
               of 64 waypoints x 16 random restarts, max_iters=100), timed
               and under the profiler; then apps.scan.run_scan on the
               committed roadmap graph/ur10/rot_free with 500 waypoints, 12
-              pictures, fusion at 256^3 (brick engine) and the fuse route
-              only, into a temporary directory. Prints the waypoints
+              pictures, fusion at 256^3 (brick engine), and the CLI's
+              other defaults: the Poisson closure at 192^3 with the auto
+              gate and the pose-seeded ICP stitch, into a temporary
+              directory. Prints the waypoints
               solved, carried by the roadmap (solve_batch) and rescued by
               the IK fallback beside the JAX package's counts, the worst
               FK miss of a solved configuration (read back from
@@ -62,10 +65,19 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
               solve_batch of 32 waypoints timed and under the profiler
               (kernels and copies, busy share), the stage times, the mean
               distance of the fused mesh's vertices to the ground-truth
-              triangles and run_scan's Chamfer. Fails under 490 solved,
-              at a miss of 1e-3 m or more, when the roadmap carries 5%
-              fewer than the JAX package, or when the mesh is not within
-              two voxels of the ground truth
+              triangles and run_scan's Chamfer; the stitch, close and gate
+              stages, the stitched, closed and best Chamfers (with their
+              two directions) beside the JAX package's, the gate's
+              signals, one stitched frame timed and profiled (kernels and
+              copies, busy share) and the batched 3x3 eigh at the
+              stitch's and the close stage's sizes. Fails under 490
+              solved, at a miss of 1e-3 m or more, when the roadmap
+              carries 5% fewer than the JAX package, when the mesh is not
+              within two voxels of the ground truth, when the stitched
+              cloud is more than 1 mm from it, when the closed or
+              stitched Chamfer is more than 10% from the JAX package's,
+              or when the gate decides otherwise than the JAX package
+              while its two proxies are more than 5% apart
  14. roadmap  GraphCore built from native/graphcore.cpp and run natively
               on the rot_fixed workspace graph, equal to its Python
               fallback; the four committed UR10 roadmaps loaded onto the
@@ -76,6 +88,14 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
               reduced depth) into a temporary directory, every configured
               node within 1e-3 m of its point by FK. Nothing is written
               under graph/
+ 15. stitch   the pose-free stitch of tests/test_recon_io.py's viewpoint
+              jump (six 160x120 frames, 4 mm voxel, 8,192 slots): frames
+              rescued and dropped, failing at a centre error of 3 cm or a
+              spread of 0.2 m; poisson_reconstruct on the card against the
+              CPU on a seeded sphere (chi within 1e-4 of its peak,
+              triangle counts within 1%); estimate_normals and the three
+              ICPs on the card against the CPU (the same iterations, T
+              within 1e-5)
 Launch counters are zeroed just before phase 5 and read after phase 5 (one
 bench batch) and after phase 6 (K1 and K2), zeroed before and read after
 each of phases 7 and 8 (K3), 11 (every ablation arm) and 12 (every probe
@@ -148,6 +168,13 @@ NUM = r"-?\d+\.?\d*(?:[eE][+-]?\d+)?"
 # the port to them): carried by the roadmap, and solved after the IK
 # fallback
 JAX_CARRIED, JAX_SOLVED = 485, 500
+# the JAX package's reconstruct half of that scan with the CLI's defaults
+# (reconstruct="both", close_mesh="auto", close_depth=192; 12 pictures,
+# 256^3), from one CPU run: the closed mesh's and the stitched cloud's
+# Chamfer distances to the banana (mm), the gate's decision and its two
+# proxies (mm)
+JAX_CLOSED_MM, JAX_STITCH_MM = 0.7892397698014975, 2.2463095374405384
+JAX_GATE = ("closed", 1.7212564831832424, 0.29079012988756103)
 # the committed UR10 roadmaps: problem, floor_check, and the
 # evaluate_roadmap metrics (nodes, edges, configured, disconnection %,
 # distance ratio rad/m) that tests/test_torch_grr.py asserts on the CPU
@@ -968,10 +995,11 @@ def main():
           f"profiler {ik_kernels} kernels and copies, {ik_busy_ms:.1f} ms on "
           f"the card: busy share {ik_busy_ms / ik_ms:.3f}")
 
-    # the flagship scan: 500 waypoints planned through the committed
-    # roadmap, 12 pictures, fusion at 256^3 (run_scan's own defaults but
-    # the two routes not ported yet). run_scan builds a roadmap into
-    # roadmap_dir when it finds none, which must never happen under graph/
+    # the flagship scan with the CLI's defaults: 500 waypoints planned
+    # through the committed roadmap, 12 pictures, fusion at 256^3, the
+    # Poisson closure at 192^3 with the auto gate, and the pose-seeded
+    # ICP stitch. run_scan builds a roadmap into roadmap_dir when it
+    # finds none, which must never happen under graph/
     roadmap = os.path.join(REPO, "graph", "ur10", "rot_free")
     if not os.path.isfile(os.path.join(roadmap, "resolution.npz")):
         raise AssertionError(f"no committed roadmap in {roadmap}")
@@ -981,8 +1009,8 @@ def main():
     with tempfile.TemporaryDirectory() as out:
         t0 = time.perf_counter()
         scan = run_scan(roadmap_dir=roadmap, n_waypoints=n_scan, n_images=12,
-                        grid_dim=256, reconstruct="fuse", close_mesh=False,
-                        out_dir=out)
+                        grid_dim=256, reconstruct="both", close_mesh="auto",
+                        close_depth=192, out_dir=out)
         scan_s = time.perf_counter() - t0
         per_scan = {"active_mask": active_mask.launches,
                     "brick_integrate": brick_integrate.launches}
@@ -995,8 +1023,10 @@ def main():
                 NUM, re.sub(r"np\.float32\(([^)]*)\)", r"\1", line))]
                 for line in f])
         scan_v, scan_f = load_mesh(os.path.join(out, "fused_mesh.ply"))
-    if files != ["ctraj.txt", "fused_mesh.ply", "trackarr.txt", "wtraj.txt",
-                 "wtraj_input.txt"]:
+        stitch_v, _ = load_mesh(os.path.join(out, "stitched_cloud.ply"))
+    if files != ["best_mesh.ply", "closed_mesh.ply", "ctraj.txt",
+                 "fused_mesh.ply", "stitched_cloud.ply", "trackarr.txt",
+                 "wtraj.txt", "wtraj_input.txt"]:
         raise AssertionError(f"run_scan wrote {files}")
     plan = scan["plan"]
     solved = np.array([e != "None" for e in entries])
@@ -1034,6 +1064,29 @@ def main():
             raise AssertionError(f"the scan's fusion never launched {name}")
         launches[name] += count
     stages = scan["stage_timings"]
+    # the reconstruct half: the stitched cloud on the object, the closed
+    # and stitched Chamfers beside the JAX package's, and the gate
+    stitch_to_gt = points_to_mesh_distance(torch.as_tensor(
+        stitch_v, dtype=torch.float32, device=dev), scan_gt)
+    stitch_to_gt_mm = stitch_to_gt.mean().item() * 1e3
+    if not (len(stitch_v) and stitch_to_gt_mm <= 1.0):
+        raise AssertionError(f"stitched cloud -> ground truth "
+                             f"{stitch_to_gt_mm} mm (limit 1 mm)")
+    st_ch, st_ab, st_ba = chamfer_to_mesh(
+        torch.as_tensor(stitch_v, dtype=torch.float32, device=dev),
+        scan_gt_v + np.asarray(OBJECT_POINT), scan_gt_f)
+    for key, want in (("closed_chamfer_mm", JAX_CLOSED_MM),
+                      ("stitch_chamfer_mm", JAX_STITCH_MM)):
+        if not abs(scan[key] - want) <= 0.1 * want:
+            raise AssertionError(f"{key} {scan[key]} mm, the JAX package's "
+                                 f"{want} mm: more than 10% apart")
+    gate = scan["close_gate"]
+    proxies = (gate["proxy_open_mm"], gate["proxy_closed_mm"])
+    near_tie = abs(proxies[0] - proxies[1]) <= 0.05 * max(proxies)
+    if gate["best"] != JAX_GATE[0] and not near_tie:
+        raise AssertionError(f"the gate kept {gate['best']} (proxies "
+                             f"{proxies}), the JAX package {JAX_GATE}")
+    best_pre = {"open": "fuse", "closed": "closed"}[scan["best_mesh"]]
     # a second solve_batch of the first 32 waypoints, timed alone and
     # under the profiler
     grr = RedundancyResolution(robot)
@@ -1054,6 +1107,69 @@ def main():
           f"{sb_kernels} kernels and copies ({sb_kernels / 32:.0f} a "
           f"waypoint), {sb_busy_ms:.2f} ms on the card: busy share "
           f"{sb_busy_ms / sb_ms:.3f}")
+    # one stitched frame alone: two of the scan's views (camera on the
+    # arc, looking at the object) through the scan's stitcher settings,
+    # the first append and one registered frame, timed and profiled
+    from reconplan_tpu_torch.recon.stitcher import (
+        PinholeIntrinsic, RGBDStitcher)
+
+    view = SplatCamera(**D435)
+    view.add_mesh_file(BANANA_MESH, translate=OBJECT_POINT)
+    shots = [view.take_picture(arc[i, :3], OBJECT_POINT) for i in (0, 45)]
+    pair_poses = np.stack([sh[2] for sh in shots])
+
+    def stitch_pair():
+        st = RGBDStitcher(PinholeIntrinsic(640, 480, **D435))
+        st.voxel_size, st.distance_threshold, st.model_capacity = (
+            0.004, 0.02, 8192)
+        return st.stitch_sequence([sh[1] for sh in shots],
+                                  [sh[0] for sh in shots], poses=pair_poses)
+
+    stitch_pair()
+    _, pair_ms = once_ms(stitch_pair)
+    _, pair_kernels, pair_busy_ms = profiled(stitch_pair)
+    # the batched 3x3 eigh of the normals: the model's 8,192 slots (the
+    # stitch) and the 80,000 observation points (the close stage)
+    # (batched_eigh, in batches of EIGH_BATCH), and the batch sizes that
+    # one torch.linalg.eigh call takes on this card
+    from reconplan_tpu_torch.ops.pointcloud import EIGH_BATCH, batched_eigh
+
+    eig_ms, eig_raw = {}, {}
+    for n in (8192, 80_000):
+        a = torch.randn(n, 16, 3, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(0))
+        cov = (a[..., :, None] * a[..., None, :]).mean(dim=1)
+        batched_eigh(cov)
+        eig_ms[n] = statistics.median(
+            once_ms(lambda: batched_eigh(cov))[1] for _ in range(5))
+    for n in (16384, 32768, 65536, 80_000):
+        try:
+            torch.linalg.eigh(cov[:n])
+            torch.cuda.synchronize()
+            eig_raw[n] = "ok"
+        except RuntimeError as e:  # the probe's answer, printed below
+            eig_raw[n] = type(e).__name__
+    phase("scan", f"stitch {stages['stitch']:.3f} s for 11 registered frames | poisson_close {stages['poisson_close']:.3f} s"
+          f" | close_gate {stages['close_gate']:.3f} s | one stitched frame "
+          f"(a two-picture stitch_sequence, 8,192 slots): {pair_ms:.1f} ms "
+          f"(CUDA events), under the profiler {pair_kernels} kernels and "
+          f"copies, {pair_busy_ms:.2f} ms on the card: busy share "
+          f"{pair_busy_ms / pair_ms:.3f} | eigh of 8,192 3x3 "
+          f"{eig_ms[8192]:.3f} ms, of 80,000 {eig_ms[80_000]:.3f} ms (in "
+          f"batches of {EIGH_BATCH}) | one eigh call by batch size: "
+          + json.dumps(eig_raw))
+    phase("scan", f"stitched cloud {len(stitch_v)} points -> ground truth "
+          f"mean {stitch_to_gt_mm:.4f} mm | stitch Chamfer "
+          f"{scan['stitch_chamfer_mm']:.4f} mm (JAX on the CPU "
+          f"{JAX_STITCH_MM:.4f}; cloud -> gt {st_ab * 1e3:.4f}, gt -> cloud "
+          f"{st_ba * 1e3:.4f}) | closed Chamfer "
+          f"{scan['closed_chamfer_mm']:.4f} mm (JAX {JAX_CLOSED_MM:.4f}; "
+          f"mesh -> gt {scan['closed_chamfer_ab_mm']:.4f}, gt -> mesh "
+          f"{scan['closed_chamfer_ba_mm']:.4f}) | best {scan['best_mesh']} "
+          f"{scan['best_chamfer_mm']:.4f} mm (mesh -> gt "
+          f"{scan[best_pre + '_chamfer_ab_mm']:.4f}, gt -> mesh "
+          f"{scan[best_pre + '_chamfer_ba_mm']:.4f}) | gate "
+          + json.dumps(gate) + f" (JAX: {JAX_GATE})")
     phase("scan", f"12 pictures -> {len(scan_f)} triangles at 256^3, voxel "
           f"{scan_voxel * 1e3:.4f} mm | mesh -> ground truth mean "
           f"{mesh_to_gt_mm:.4f} mm, max {mesh_to_gt.max().item() * 1e3:.4f} "
@@ -1064,7 +1180,7 @@ def main():
           "stages s (synchronised): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
           + f" | {card}")
-    del grr, scan_gt
+    del grr, scan_gt, shots, view
 
     # --- 14. the roadmap layer ------------------------------------------
     from reconplan_tpu_torch.apps.redundancy import build_roadmap
@@ -1145,6 +1261,102 @@ def main():
           f"{m['disconnection_ratio']:.3f} %, distance ratio "
           f"{m['distance_ratio']:.3f} rad/m, worst FK miss {miss:.3g} m | "
           "written to a temporary directory")
+
+    # --- 15. the stitch's pose-free route and the card against the CPU ---
+    from reconplan_tpu_torch.ops import icp as icp_ops
+    from reconplan_tpu_torch.ops import pointcloud as pc_ops
+    from reconplan_tpu_torch.recon.poisson import poisson_reconstruct
+
+    # the scene of tests/test_recon_io.py's pose-free viewpoint jump: six
+    # 160x120 frames (fx = 100), two clusters split by an azimuth jump
+    obj = np.asarray(OBJECT_POINT)
+    small = SplatCamera(width=160, height=120, fx=100, fy=100, cx=80, cy=60,
+                        samples_per_mesh=300_000)
+    small.add_mesh_file(BANANA_MESH, translate=tuple(obj))
+    shots = [small.take_picture(obj + [0.35 * math.cos(a),
+                                       0.35 * math.sin(a), 0.25], obj)
+             for a in (2.0, 2.1, 2.2, 3.2, 3.3, 3.4)]
+    pose0 = shots[0][2]
+    st = RGBDStitcher(PinholeIntrinsic(160, 120, 100, 100, 80, 60))
+    st.voxel_size, st.distance_threshold, st.model_capacity = (0.004, 0.02,
+                                                               8192)
+    t0 = time.perf_counter()
+    cloud = st.stitch_sequence([sh[1] for sh in shots],
+                               [sh[0] for sh in shots], poses=None)
+    free_pts = cloud.compact()[0]
+    free_s = time.perf_counter() - t0
+    world = free_pts @ pose0[:3, :3].T + pose0[:3, 3]
+    center_err = float(np.linalg.norm(world.mean(axis=0)[:2] - obj[:2]))
+    spread = float(np.linalg.norm(world - world.mean(axis=0), axis=1).max())
+    chained, accepted = st.last_scores.T
+    rescued = int(((chained < st.global_rescue_score)
+                   & (accepted > chained)).sum())
+    dropped = int((accepted < st.integrate_score_floor).sum())
+    if not (center_err < 0.03 and spread < 0.2):
+        raise AssertionError(f"pose-free stitch: centre off by {center_err} "
+                             f"m, spread {spread} m")
+    phase("stitch", f"pose-free, 6 frames of 160x120 across an azimuth "
+          f"jump, 8,192 slots: {free_s:.2f} s, {len(free_pts)} points, "
+          f"{rescued} frames rescued by FPFH + RANSAC, {dropped} dropped | "
+          f"centre error {center_err * 1e3:.2f} mm (limit 30), spread "
+          f"{spread:.4f} m (limit 0.2) | tight scores chained "
+          f"{np.round(chained, 3).tolist()}, accepted "
+          f"{np.round(accepted, 3).tolist()}")
+    # the Poisson solve on a seeded sphere: the splat adds atomically on
+    # the card, in no fixed order, so chi agrees within a tolerance
+    rng = np.random.default_rng(0)
+    sph = rng.normal(size=(20000, 3))
+    sph /= np.linalg.norm(sph, axis=-1, keepdims=True)
+    sph_pts, sph_nrm = (0.1 * sph).astype(np.float32), sph.astype(np.float32)
+    poisson_reconstruct(sph_pts, sph_nrm, depth=128)
+    (tris_c, grid_c), poi_ms = once_ms(lambda: poisson_reconstruct(
+        sph_pts, sph_nrm, depth=128, return_grid=True))
+    tris_h, grid_h = poisson_reconstruct(sph_pts, sph_nrm, depth=128,
+                                         return_grid=True, device="cpu")
+    chi_err = ((grid_c.sdf.cpu() - grid_h.sdf).abs().max()
+               / grid_h.sdf.abs().max()).item()
+    if not (chi_err <= 1e-4 and abs(len(tris_c) - len(tris_h))
+            <= 0.01 * len(tris_h)):
+        raise AssertionError(f"poisson on the card: chi err {chi_err} of the "
+                             f"peak, {len(tris_c)} triangles against the "
+                             f"CPU's {len(tris_h)}")
+    # estimate_normals and the three ICPs, the card against the CPU
+    bumps = sph * (0.5 + 0.05 * np.sin(5 * sph[:, :1])
+                   + 0.04 * np.cos(7 * sph[:, 1:2]))
+    src_np = bumps[:1500].astype(np.float32)
+    dst_np = src_np + np.float32([0.02, -0.01, 0.015])
+    cols = np.repeat(0.5 + 0.5 * np.sin(7 * src_np[:, :1]), 3, 1).astype(
+        np.float32)
+    icp_out, nrm_out = [], []
+    for where in ("cuda", "cpu"):
+        src = pc_ops.make_cloud(src_np, colors=cols, device=where)
+        tgt = pc_ops.estimate_normals(pc_ops.make_cloud(
+            dst_np, colors=cols, device=where), k=12)
+        nrm_out.append(tgt.normals.cpu())
+        icp_out.append([
+            icp_ops.icp_point_to_point(src, tgt, 0.1),
+            icp_ops.icp_point_to_plane(src, tgt, 0.1),
+            icp_ops.colored_icp(src, tgt, icp_ops.color_gradients(tgt), 0.1)])
+    nrm_dot = (nrm_out[0] * nrm_out[1]).sum(-1).min().item()
+    icp_lines = []
+    for name, a, b in zip(("point_to_point", "point_to_plane", "colored"),
+                          *icp_out):
+        t_err = (a.transformation.cpu() - b.transformation).abs().max().item()
+        if not (int(a.iterations) == int(b.iterations) and t_err <= 1e-5):
+            raise AssertionError(f"{name} ICP on the card: {int(a.iterations)}"
+                                 f" iterations against {int(b.iterations)}, "
+                                 f"T err {t_err}")
+        icp_lines.append(f"{name} {int(a.iterations)} iterations, T err "
+                         f"{t_err:.3g}")
+    if not nrm_dot > 1 - 1e-5:
+        raise AssertionError(f"estimate_normals on the card: min n . n' "
+                             f"{nrm_dot}")
+    phase("stitch", f"poisson_reconstruct at 128^3 of 20,000 sphere points "
+          f"{poi_ms:.1f} ms (CUDA events): chi err {chi_err:.3g} of the peak "
+          f"(limit 1e-4), {len(tris_c)} triangles (CPU {len(tris_h)}) | "
+          f"estimate_normals min n . n' {nrm_dot:.8f} | "
+          + "; ".join(icp_lines) + " (the card against the CPU)")
+    del small, shots, grid_c, grid_h
 
     for arm, count in {**ablate_launches, **probe_launches}.items():
         if count == 0:

@@ -23,11 +23,14 @@ io          mesh IO, frame sets and feeds, problem configs, roadmap
 core        SE3 / quaternion maths, workspace sampling grids
 kin         .rob parser, kinematic chain (FK, Jacobian), batched DLS IK,
             collision, the Robot protocol
-grr         Cartesian path generators (the scan arc)
-ops         dense TSDF and raycast, brick TSDF, marching cubes, nearest
-            neighbours, kernels
+grr         Cartesian path generators (the scan arc), roadmaps
+ops         point clouds, ICP, FPFH + RANSAC, dense TSDF and raycast, brick
+            TSDF, marching cubes, nearest neighbours, kernels
 parallel    brick-sharded fusion over a list of devices
-recon       fusion pipeline, Chamfer and point-to-mesh metrics
+recon       fusion pipeline, RGBD stitcher, Poisson reconstruction, Chamfer
+            and point-to-mesh metrics
+viz         the HTML point-cloud viewer
+apps        the roadmap build, the scan loop and the stitch CLIs
 benchmarks  the brick profiler and the sampling microprobe
 """
 

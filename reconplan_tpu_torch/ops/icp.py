@@ -1,0 +1,318 @@
+"""Iterative closest point registration.
+
+Port of ``reconplan_tpu.ops.icp`` (which replaces Open3D's registration
+pipeline of the reference stitcher): ``ICPResult``, ``register_kabsch``
+(Horn's quaternion method), ``icp_point_to_point``,
+``icp_point_to_plane``, ``color_gradients`` and ``colored_icp`` (Park,
+Zhou, Koltun ICCV 2017).
+
+Correspondences are dense nearest neighbours (no KD-tree) and every
+iteration is fixed-shape (threshold masking, never compaction). Each JAX
+solve is one ``lax.while_loop``; here it is a Python loop that keeps a
+``live`` flag on the device: the transform, the rmse and the iteration
+count change only while the JAX stop test holds, so the loop takes
+exactly the JAX number of iterations, and the host asks the flag only
+every ``CHECK_EVERY`` iterations (each question is a synchronisation).
+
+The 6x6 normal equations and the batched 3x3 gradient fits go to
+``torch.linalg.solve_ex``, which neither raises on a singular system nor
+synchronises to check it; 3x3 and 4x4 products are multiplies and sums,
+never ``torch.matmul`` (no TF32).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from reconplan_tpu_torch.core import maths
+from reconplan_tpu_torch.ops.nn import knn, nearest_neighbor
+from reconplan_tpu_torch.ops.pointcloud import PointCloud, batched_eigh
+
+# iterations between two looks at whether the solve is still live
+CHECK_EVERY = 4
+
+
+class ICPResult(NamedTuple):
+    transformation: torch.Tensor  # (4, 4)
+    fitness: torch.Tensor  # inliers / valid source points
+    inlier_rmse: torch.Tensor
+    iterations: torch.Tensor
+
+
+def _transform(T, pts):
+    """``pts @ R.T + t`` for (..., 4, 4) T and (..., N, 3) pts."""
+    R, t = T[..., None, :3, :3], T[..., None, :3, 3]
+    return (pts[..., None, :] * R).sum(dim=-1) + t
+
+
+def _matmul4(A, B):
+    """(..., 4, 4) @ (..., 4, 4) as multiplies and sums."""
+    return (A[..., :, :, None] * B[..., None, :, :]).sum(dim=-2)
+
+
+def _rigid(R, t):
+    """(..., 3, 3), (..., 3) -> (..., 4, 4) rigid transform."""
+    T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
+    T[..., :3, :3] = R
+    T[..., :3, 3] = t
+    T[..., 3, 3] = 1.0
+    return T
+
+
+def register_kabsch(src, dst, weights):
+    """Weighted rigid alignment src -> dst (Horn's quaternion method).
+
+    Args: (..., N, 3), (..., N, 3), (..., N) weights (0 for
+    non-correspondences); leading dimensions batch. Returns (..., 4, 4).
+
+    The optimal rotation is the principal eigenvector of a symmetric 4x4
+    built from the cross-covariance (Horn, JOSA 1987); q and -q give the
+    same R, so the sign ``eigh`` picks does not matter. With no weight at
+    all, S = 0 and K = 0: the rotation is whatever principal eigenvector
+    the library returns for the zero matrix.
+    """
+    w = weights / torch.clamp(weights.sum(dim=-1, keepdim=True), min=1e-9)
+    mu_s = (src * w[..., None]).sum(dim=-2)
+    mu_d = (dst * w[..., None]).sum(dim=-2)
+    s = src - mu_s[..., None, :]
+    d = dst - mu_d[..., None, :]
+    # cross-covariance S[i, j] = sum_n w s_i d_j
+    S = ((s * w[..., None])[..., :, :, None] * d[..., :, None, :]).sum(dim=-3)
+    sxx, sxy, sxz = S[..., 0, 0], S[..., 0, 1], S[..., 0, 2]
+    syx, syy, syz = S[..., 1, 0], S[..., 1, 1], S[..., 1, 2]
+    szx, szy, szz = S[..., 2, 0], S[..., 2, 1], S[..., 2, 2]
+    K = torch.stack([
+        torch.stack([sxx + syy + szz, syz - szy, szx - sxz, sxy - syx], -1),
+        torch.stack([syz - szy, sxx - syy - szz, sxy + syx, szx + sxz], -1),
+        torch.stack([szx - sxz, sxy + syx, -sxx + syy - szz, syz + szy], -1),
+        torch.stack([sxy - syx, szx + sxz, syz + szy, -sxx - syy + szz], -1),
+    ], dim=-2)
+    _, vecs = batched_eigh(K.reshape(-1, 4, 4))
+    vecs = vecs.reshape(K.shape)
+    q_wxyz = vecs[..., :, -1]  # principal eigenvector = optimal quaternion
+    quat = torch.cat([q_wxyz[..., 1:], q_wxyz[..., :1]], dim=-1)  # -> xyzw
+    R = maths.quat_to_matrix(maths.quat_normalize(quat))
+    t = mu_d - (R * mu_s[..., None, :]).sum(dim=-1)
+    return _rigid(R, t)
+
+
+def _se3_exp(xi):
+    """Twist (omega (3,), v (3,)) -> (4, 4) via quaternion exponential."""
+    omega, v = xi[:3], xi[3:]
+    R = maths.quat_to_matrix(maths.rotvec_to_quat(omega))
+    # first-order translation (standard small-step GN update)
+    return _rigid(R, v)
+
+
+def _correspondences(T, src_pts, src_valid, dst_pts, dst_valid, max_dist):
+    moved = _transform(T, src_pts)
+    d, idx = nearest_neighbor(moved, dst_pts, valid=dst_valid)
+    w = (src_valid & (d < max_dist)).to(torch.float32)
+    return moved, idx, d, w
+
+
+def _solve(step, T0, max_iteration, relative_rmse):
+    """The JAX ``lax.while_loop`` of every ICP here: ``step(T)`` returns
+    (T', rmse at T); the loop runs while fewer than ``max_iteration``
+    steps were taken and the rmse still moves by more than
+    ``relative_rmse`` of itself. Returns (T, iterations) tensors."""
+    dev = T0.device
+    T = T0
+    # finite sentinel: with inf the relative test becomes inf > inf
+    # (False) and the loop would never start
+    rmse = torch.tensor(1e30, device=dev)
+    prev = torch.tensor(0.0, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    live = torch.ones((), dtype=torch.bool, device=dev)
+    for it in range(max_iteration):
+        live = live & ((prev - rmse).abs()
+                       > relative_rmse * torch.clamp(rmse, min=1e-12))
+        if it and it % CHECK_EVERY == 0 and not bool(live):
+            break
+        T_new, rmse_new = step(T)
+        T = torch.where(live, T_new, T)
+        prev = torch.where(live, rmse, prev)
+        rmse = torch.where(live, rmse_new, rmse)
+        iters = iters + live.to(torch.int32)
+    return T, iters
+
+
+def _init(init, device):
+    if init is None:
+        return torch.eye(4, dtype=torch.float32, device=device)
+    return torch.as_tensor(init, dtype=torch.float32, device=device)
+
+
+def _final(T, source, target, max_dist, iters):
+    """ICPResult at the converged T: inliers over valid source points, and
+    the point-to-point rmse of the inliers."""
+    _, _, d, w = _correspondences(T, source.points, source.valid,
+                                  target.points, target.valid, max_dist)
+    n_src = torch.clamp(source.valid.to(torch.float32).sum(), min=1.0)
+    n_in = torch.clamp(w.sum(), min=1.0)
+    return ICPResult(T, w.sum() / n_src, torch.sqrt((w * d * d).sum() / n_in),
+                     iters)
+
+
+def icp_point_to_point(
+    source: PointCloud,
+    target: PointCloud,
+    max_correspondence_distance: float,
+    init: torch.Tensor | None = None,
+    max_iteration: int = 30,
+    relative_rmse: float = 1e-6,
+):
+    """Point-to-point ICP (Open3D semantics, the reference's
+    ``stitcher.py:106-112``)."""
+    T0 = _init(init, source.points.device)
+
+    def step(T):
+        _, idx, d, w = _correspondences(
+            T, source.points, source.valid, target.points, target.valid,
+            max_correspondence_distance)
+        T_new = register_kabsch(source.points, target.points[idx], w)
+        n_in = torch.clamp(w.sum(), min=1.0)
+        return T_new, torch.sqrt((w * d * d).sum() / n_in)
+
+    T, iters = _solve(step, T0, max_iteration, relative_rmse)
+    return _final(T, source, target, max_correspondence_distance, iters)
+
+
+def _gauss_newton_step(A_rows, residuals, weights, damping=1e-6):
+    """Solve the normal equations for a stack of scalar residual rows.
+
+    A_rows: (N, 6) Jacobian rows; residuals (N,); weights (N,).
+    Returns the twist update xi (6,).
+    """
+    wA = A_rows * weights[:, None]
+    JtJ = (wA[:, :, None] * A_rows[:, None, :]).sum(dim=0)
+    Jtr = (wA * residuals[:, None]).sum(dim=0)
+    JtJ = JtJ + damping * torch.eye(6, device=JtJ.device)
+    return torch.linalg.solve_ex(JtJ, -Jtr)[0]
+
+
+def _cross(a, b):
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def icp_point_to_plane(
+    source: PointCloud,
+    target: PointCloud,  # must carry normals
+    max_correspondence_distance: float,
+    init: torch.Tensor | None = None,
+    max_iteration: int = 30,
+    relative_rmse: float = 1e-6,
+):
+    """Point-to-plane ICP: minimizes sum w (n_q . (T p - q))^2 by
+    Gauss-Newton on the se3 twist."""
+    T0 = _init(init, source.points.device)
+
+    def step(T):
+        moved, idx, _, w = _correspondences(
+            T, source.points, source.valid, target.points, target.valid,
+            max_correspondence_distance)
+        q = target.points[idx]
+        n = target.normals[idx]
+        r = (n * (moved - q)).sum(dim=-1)
+        # d r / d xi rows: [ (p' x n), n ]
+        A = torch.cat([_cross(moved, n), n], dim=-1)
+        xi = _gauss_newton_step(A, r, w)
+        T_new = _matmul4(_se3_exp(xi), T)
+        n_in = torch.clamp(w.sum(), min=1.0)
+        return T_new, torch.sqrt((w * r * r).sum() / n_in)
+
+    T, iters = _solve(step, T0, max_iteration, relative_rmse)
+    return _final(T, source, target, max_correspondence_distance, iters)
+
+
+def _intensity(colors):
+    return colors.mean(dim=-1)
+
+
+def color_gradients(cloud: PointCloud, k_gradient: int = 10):
+    """Per-point tangent-plane intensity gradients for colored ICP
+    (Park et al. 2017, eq. 10-12): least-squares fit of d s.t.
+    c(q_j) ~ c(q) + d . (proj(q_j) - q) over the k-NN, with d constrained
+    to the tangent plane (d . n = 0 appended as an equation)."""
+    _, idx = knn(cloud.points, cloud.points, k_gradient + 1,
+                 valid=cloud.valid)
+    idx = idx[:, 1:]
+    q = cloud.points  # (N, 3)
+    n = cloud.normals
+    c = _intensity(cloud.colors)
+    qj = cloud.points[idx]  # (N, k, 3)
+    cj = c[idx]  # (N, k)
+    # project neighbors onto each tangent plane
+    dq = qj - q[:, None, :]
+    dist_n = (dq * n[:, None, :]).sum(dim=-1, keepdim=True)
+    proj = dq - dist_n * n[:, None, :]  # (N, k, 3)
+    rhs = cj - c[:, None]  # (N, k)
+    # append the constraint row n . d = 0
+    A = torch.cat([proj, n[:, None, :]], dim=1)  # (N, k+1, 3)
+    b = torch.cat([rhs, torch.zeros_like(c[:, None])], dim=1)
+    AtA = (A[..., :, None] * A[..., None, :]).sum(dim=1) + 1e-6 * torch.eye(
+        3, device=A.device)
+    Atb = (A * b[..., None]).sum(dim=1)
+    return torch.linalg.solve_ex(AtA, Atb[..., None])[0][..., 0]  # (N, 3)
+
+
+def colored_icp(
+    source: PointCloud,
+    target: PointCloud,  # must carry normals, colors, and gradients
+    target_gradients: torch.Tensor,
+    max_correspondence_distance: float,
+    init: torch.Tensor | None = None,
+    max_iteration: int = 50,
+    lambda_geometric: float = 0.968,
+    relative_rmse: float = 1e-6,
+):
+    """Colored point cloud registration (Park, Zhou, Koltun ICCV 2017) —
+    the algorithm behind Open3D's ``registration_colored_icp`` of the
+    reference's ``stitcher.py:94-103``. Joint objective:
+        (1 - l) * (c_p - c_q - d_q . (proj(p') - q))^2 + l * (n_q.(p'-q))^2
+    with Open3D's default lambda_geometric = 0.968.
+    """
+    T0 = _init(init, source.points.device)
+    lg = torch.tensor(lambda_geometric, dtype=torch.float32,
+                      device=T0.device)
+    sqrt_lg = torch.sqrt(lg)
+    sqrt_lc = torch.sqrt(1.0 - lg)
+    c_src = _intensity(source.colors)
+    c_tgt = _intensity(target.colors)
+
+    def step(T):
+        moved, idx, _, w = _correspondences(
+            T, source.points, source.valid, target.points, target.valid,
+            max_correspondence_distance)
+        q = target.points[idx]
+        n = target.normals[idx]
+        grad = target_gradients[idx]
+        cq = c_tgt[idx]
+
+        # geometric residual rows
+        r_g = (n * (moved - q)).sum(dim=-1)
+        A_g = torch.cat([_cross(moved, n), n], dim=-1) * sqrt_lg
+
+        # photometric residual: project p' to tangent plane at q
+        dpq = moved - q
+        proj = moved - (dpq * n).sum(dim=-1, keepdim=True) * n
+        c_proj = cq + (grad * (proj - q)).sum(dim=-1)
+        r_c = c_src - c_proj
+        # d r_c / d p' = -grad_tangent (through proj; n-component dropped)
+        M = grad - (grad * n).sum(dim=-1, keepdim=True) * n
+        A_c = torch.cat([_cross(moved, -M), -M], dim=-1) * sqrt_lc
+
+        A = torch.cat([A_g, A_c], dim=0)
+        r = torch.cat([r_g * sqrt_lg, r_c * sqrt_lc], dim=0)
+        xi = _gauss_newton_step(A, r, torch.cat([w, w], dim=0))
+        T_new = _matmul4(_se3_exp(xi), T)
+        n_in = torch.clamp(w.sum(), min=1.0)
+        rmse = torch.sqrt(((w * r_g ** 2).sum() * lg
+                           + (w * r_c ** 2).sum() * (1 - lg)) / n_in)
+        return T_new, rmse
+
+    T, iters = _solve(step, T0, max_iteration, relative_rmse)
+    return _final(T, source, target, max_correspondence_distance, iters)

@@ -29,8 +29,10 @@ def pairwise_sqdist(x, y, precision=None, center=True):
         y = y - mu
     x2 = (x * x).sum(dim=-1, keepdim=True)
     y2 = (y * y).sum(dim=-1, keepdim=True)
-    xy = torch.matmul(x, y.T)
-    return torch.clamp(x2 + y2.T - 2.0 * xy, min=0.0)
+    # (x2 + y2) - 2 xy, in place on the two (N, M) temporaries
+    d = x2 + y2.T
+    d.sub_(torch.matmul(x, y.T).mul_(2.0))
+    return d.clamp_(min=0.0)
 
 
 # the most entries of one distance tile (256 MB in f32): 2,048 query rows
@@ -51,7 +53,7 @@ def nearest_neighbor(queries, points, valid=None, row_chunk=2048):
     for q_chunk in q_padded.split(row_chunk):
         d = pairwise_sqdist(q_chunk, points)
         if valid is not None:
-            d = torch.where(valid[None, :], d, float("inf"))
+            d.masked_fill_(~valid[None, :], float("inf"))
         idx = d.argmin(dim=-1)
         # exact recompute of the winner (cancellation, see pairwise_sqdist)
         dists.append(torch.linalg.norm(q_chunk - points[idx], dim=-1))
@@ -91,7 +93,7 @@ def _knn_chunked(queries, points, k, valid, row_chunk, metric, exact):
     for q_chunk in q_padded.split(row_chunk):
         d = metric(q_chunk, points)
         if valid is not None:
-            d = torch.where(valid[None, :], d, float("inf"))
+            d.masked_fill_(~valid[None, :], float("inf"))
         cand = _smallest(d, n_cand)
         d_exact = exact(q_chunk[:, None, :], points[cand])
         if valid is not None:

@@ -944,3 +944,166 @@ def test_run_scan_without_a_device_lands_on_the_card(card, tmp_path):
     assert active_mask.launches > before[0]
     assert brick_integrate.launches > before[1]
     assert out["fuse_chamfer_mm"] < 10.0
+
+
+# --- the reconstruct half on the card --------------------------------------
+
+
+BANANA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "data", "objects", "011_banana", "poisson",
+    "nontextured.ply")
+
+
+def _bumpy(n, seed=0, r0=0.5):
+    d = np.random.default_rng(seed).normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    r = r0 + 0.05 * np.sin(5 * d[:, 0]) + 0.04 * np.cos(7 * d[:, 1])
+    return (d * r[:, None]).astype(np.float32), d.astype(np.float32)
+
+
+def test_pointcloud_ops_on_the_card_equal_the_cpu(card):
+    from reconplan_tpu_torch.ops import pointcloud as pc
+
+    rng = np.random.default_rng(0)
+    depth = rng.uniform(300, 3500, (120, 160)).astype(np.float32)
+    depth[rng.uniform(size=depth.shape) < 0.1] = 0
+    color = rng.integers(0, 255, (120, 160, 3)).astype(np.uint8)
+    a = pc.backproject_depth(depth, 100.0, 101.0, 80.0, 60.0, color=color)
+    b = pc.backproject_depth(depth, 100.0, 101.0, 80.0, 60.0, color=color,
+                             device="cpu")
+    assert a.points.is_cuda
+    assert torch.equal(a.valid.cpu(), b.valid)
+    assert (a.points.cpu() - b.points).abs().max().item() <= 1e-6
+    assert (a.colors.cpu() - b.colors).abs().max().item() <= 1e-7
+    # a surface: its normals are well defined (a blob's inner points have
+    # two near-equal small eigenvalues, and cuSOLVER and LAPACK then
+    # return different vectors of that plane). 40,000 points take
+    # estimate_normals past one eigh batch (EIGH_BATCH)
+    pts, _ = _bumpy(40_000)
+    pts = pts + np.float32([0.3, -0.2, 2.0])
+    valid = rng.uniform(size=len(pts)) > 0.1
+    ca, cb = pc.make_cloud(pts, valid=valid), pc.make_cloud(
+        pts, valid=valid, device="cpu")
+    da, db = pc.voxel_downsample(ca, 0.01), pc.voxel_downsample(cb, 0.01)
+    assert torch.equal(da.valid.cpu(), db.valid)
+    assert (da.points.cpu() - db.points)[db.valid].abs().max() <= 1e-6
+    assert len(pts) > pc.EIGH_BATCH
+    na = pc.estimate_normals(ca, k=30).normals.cpu()
+    nb = pc.estimate_normals(cb, k=30).normals
+    assert (na * nb).sum(-1)[valid].min().item() > 1 - 1e-5
+    assert torch.equal(pc.remove_statistical_outliers(ca).valid.cpu(),
+                       pc.remove_statistical_outliers(cb).valid)
+
+
+def test_icps_on_the_card_equal_the_cpu(card):
+    """The same iteration counts, T within 1e-5 (the live flag keeps the
+    frozen iterations on the card, read every few)."""
+    from reconplan_tpu_torch.ops import icp, pointcloud as pc
+
+    pts, _ = _bumpy(1500)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = [0.02, -0.01, 0.015]
+    dst = (pts @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+    cols = np.repeat(0.5 + 0.5 * np.sin(7 * pts[:, :1]), 3, 1).astype(
+        np.float32)
+    res = []
+    for dev in ("cuda", "cpu"):
+        src = pc.make_cloud(pts, colors=cols, device=dev)
+        tgt = pc.estimate_normals(pc.make_cloud(dst, colors=cols,
+                                                device=dev), k=12)
+        res.append([icp.icp_point_to_point(src, tgt, 0.1),
+                    icp.icp_point_to_plane(src, tgt, 0.1),
+                    icp.colored_icp(src, tgt, icp.color_gradients(tgt), 0.1)])
+    for a, b in zip(*res):
+        assert a.transformation.is_cuda
+        assert int(a.iterations) == int(b.iterations)
+        assert (a.transformation.cpu() - b.transformation).abs().max() <= 1e-5
+        assert abs(float(a.fitness) - float(b.fitness)) <= 1e-6
+
+
+def test_ransac_scores_on_the_card_equal_the_cpu(card):
+    from reconplan_tpu_torch.ops import features, pointcloud as pc
+
+    pts, _ = _bumpy(800)
+    dst = pts + np.float32([0.2, -0.1, 0.3])
+    out = []
+    for dev in ("cuda", "cpu"):
+        s = pc.estimate_normals(pc.make_cloud(pts, device=dev), k=16)
+        d = pc.estimate_normals(pc.make_cloud(dst, device=dev), k=16)
+        out.append((features.fpfh(s), s, d))
+    assert (out[0][0].cpu() - out[1][0]).abs().max() <= 1e-5
+    picks = torch.randint(0, 800, (256, 3),
+                          generator=torch.Generator().manual_seed(0))
+    corr = torch.arange(800)
+    ok = torch.ones(800, dtype=torch.bool)
+    Ta, sa, ba = features._score_hypotheses(
+        out[0][1].points, out[0][2].points, corr.cuda(), ok.cuda(),
+        picks.cuda(), 0.05)
+    Tb, sb, bb = features._score_hypotheses(
+        out[1][1].points, out[1][2].points, corr, ok, picks, 0.05)
+    assert int(ba) == int(bb) and int(sa[ba]) == int(sb[bb]) == 800
+
+
+def test_poisson_on_the_card_equals_the_cpu(card):
+    """The splat adds atomically on the card, in no fixed order: chi
+    within 1e-4 of its peak, triangle counts within 1%."""
+    from reconplan_tpu_torch.recon import poisson
+
+    d = np.random.default_rng(0).normal(size=(20000, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    pts, nrm = (0.1 * d).astype(np.float32), d.astype(np.float32)
+    ta, ga = poisson.poisson_reconstruct(pts, nrm, depth=96, return_grid=True)
+    tb_, gb = poisson.poisson_reconstruct(pts, nrm, depth=96,
+                                          return_grid=True, device="cpu")
+    assert ta.is_cuda
+    peak = gb.sdf.abs().max().item()
+    assert (ga.sdf.cpu() - gb.sdf).abs().max().item() <= 1e-4 * peak
+    assert abs(len(ta) - len(tb_)) <= 0.01 * len(tb_)
+
+
+def test_stitch_on_the_card_equals_the_cpu(card):
+    """A pose-seeded stitch of three 160x120 pictures: model counts
+    within 1%, transforms within the two-cycle spread of the CPU test
+    (``tests/test_torch_stitch.py``)."""
+    from reconplan_tpu_torch.io.render import SplatCamera
+    from reconplan_tpu_torch.recon.stitcher import (
+        PinholeIntrinsic,
+        RGBDStitcher,
+    )
+
+    cam = SplatCamera(width=160, height=120, fx=100, fy=100, cx=80, cy=60,
+                      samples_per_mesh=300_000, device="cpu")
+    cam.add_mesh_file(BANANA, translate=(0.75, 0.75, 0.0))
+    shots = [cam.take_picture(e, [0.75, 0.75, 0.0]) for e in
+             ([0.45, 0.45, 0.3], [0.48, 0.43, 0.31], [0.5, 0.42, 0.32])]
+    out = []
+    for dev in ("cuda", "cpu"):
+        st = RGBDStitcher(PinholeIntrinsic(160, 120, 100, 100, 80, 60),
+                          device=dev)
+        st.voxel_size, st.distance_threshold, st.model_capacity = (
+            0.004, 0.02, 2048)
+        cloud = st.stitch_sequence([s[1] for s in shots],
+                                   [s[0] for s in shots],
+                                   poses=np.stack([s[2] for s in shots]))
+        out.append((cloud, st))
+    (ca, sa), (cb, sb) = out
+    assert ca.points.is_cuda
+    assert abs(ca.count() - cb.count()) <= 0.01 * cb.count()
+    assert np.abs(sa.last_transforms - sb.last_transforms)[:, :3, 3].max() \
+        < 1e-3
+    assert np.abs(sa.last_transforms - sb.last_transforms).max() < 5e-3
+
+
+def test_run_scan_defaults_on_the_card(card, tmp_path):
+    """Every route of the scan (fuse, Poisson close with its gate, the
+    stitch) with no device given."""
+    from reconplan_tpu_torch.apps.scan import run_scan
+
+    out = run_scan(roadmap_dir=ROADMAP, n_waypoints=24, n_images=3,
+                   grid_dim=64, reconstruct="both", close_mesh="auto",
+                   close_depth=64, out_dir=str(tmp_path), verbose=False)
+    assert torch.device(out["device"]).type == "cuda"
+    for key in ("fuse_chamfer_mm", "closed_chamfer_mm", "best_chamfer_mm",
+                "stitch_chamfer_mm"):
+        assert 0 < out[key] < 20, key
+    assert out["best_mesh"] == out["close_gate"]["best"]

@@ -1,6 +1,8 @@
-"""``reconplan_tpu_torch.apps`` (the roadmap build and the scan's fuse
-route, end to end) against the JAX package on the CPU. The plan alone
-is held in ``tests/test_torch_scan_plan.py``.
+"""``reconplan_tpu_torch.apps`` (the roadmap build, the scan's fuse route
+end to end, and its Poisson close route with the auto gate) against the
+JAX package on the CPU. The plan alone is held in
+``tests/test_torch_scan_plan.py``, the CLI with its defaults in
+``tests/test_torch_scan_cli.py``.
 
 The same arguments go through the JAX entry point (jitted, on the CPU)
 and its port with ``device="cpu"``; both pick the dense fusion engine
@@ -11,6 +13,11 @@ Tolerances and why:
 * arc schedules and the waypoints written to ``wtraj_input.txt``: 1e-6.
 * the scan as a whole: solved waypoints equal within one, the fused
   mesh's Chamfer distance to the banana within 5% of the JAX value.
+* the close route on the same three pictures (8,000 observation
+  points, a 64^3 Poisson grid): the same gate decision and fractions,
+  the closed meshes' Chamfer distances to the banana within 1%. The
+  JAX ``run_scan`` is not run for it: its 80,000 default observation
+  points would make the normals' k-NN an 80,000^2 product.
 """
 
 import os
@@ -27,6 +34,7 @@ from reconplan_tpu_torch.apps import redundancy as tredundancy
 from reconplan_tpu_torch.apps import scan as tscan
 from reconplan_tpu_torch.grr import paths
 from reconplan_tpu_torch.io.config import load_problem
+from reconplan_tpu_torch.recon import metrics as tmetrics
 from torch_parity import jax_ik_lanes
 
 torch.set_num_threads(2)
@@ -133,17 +141,84 @@ def test_run_scan_matches_jax(tmp_path):
     (dict(close_mesh="auto"), "Slice D"),
 ])
 def test_routes_not_ported_raise(kw, slice_, tmp_path):
-    args = dict(roadmap_dir=ROADMAP, reconstruct="fuse", close_mesh=False,
-                out_dir=str(tmp_path), device="cpu")
+    """The stitch (Slice C) and close (Slice D) routes, which raised
+    ``NotImplementedError`` before they were ported, now run and write
+    their files and result keys (two waypoints, one picture, 32^3)."""
+    args = dict(roadmap_dir=ROADMAP, n_waypoints=2, n_images=1, grid_dim=32,
+                close_depth=32, reconstruct="fuse", close_mesh=False,
+                out_dir=str(tmp_path), device="cpu", verbose=False)
     args.update(kw)
-    with pytest.raises(NotImplementedError, match=slice_):
-        tscan.run_scan(**args)
-    assert not os.listdir(tmp_path)
-    flag = (["--reconstruct", kw["reconstruct"], "--close-mode", "never"]
-            if "reconstruct" in kw else ["--reconstruct", "fuse"])
-    with pytest.raises(NotImplementedError, match=slice_):
-        tscan.main(["--roadmap", ROADMAP, "--device", "cpu", "--out",
-                    str(tmp_path)] + flag)
+    got = tscan.run_scan(**args)
+    files = set(os.listdir(tmp_path))
+    if slice_ == "Slice C":
+        assert "stitched_cloud.ply" in files
+        assert np.isfinite(got["stitch_chamfer_mm"])
+        assert ("fused_mesh.ply" in files) == (kw["reconstruct"] == "both")
+        assert "stitch" in got["stage_timings"]
+    else:
+        assert {"fused_mesh.ply", "closed_mesh.ply"} <= files
+        assert np.isfinite(got["closed_chamfer_mm"])
+        assert "poisson_close" in got["stage_timings"]
+        # only the auto gate picks a best mesh, as in the JAX package
+        assert ("best_mesh" in got) == (kw["close_mesh"] == "auto")
+        assert ("best_mesh.ply" in files) == ("close_gate" in got)
+
+
+@pytest.fixture(scope="module")
+def three_pictures():
+    """Three pictures of the banana by the scan's D435 from eyes on the
+    scan arc (24 waypoints), as numpy, and the port's fused 64^3 mesh."""
+    from reconplan_tpu_torch.io.frames import FrameSet
+    from reconplan_tpu_torch.io.render import SplatCamera
+    from reconplan_tpu_torch.recon.fusion import FusionPipeline
+
+    arc = tscan.make_arc_schedule(1, 24, device="cpu")[0]
+    cam = SplatCamera(**tscan.D435, device="cpu")
+    cam.add_mesh_file(tscan.BANANA_MESH, translate=tscan.OBJECT_POINT)
+    shots = [cam.take_picture(arc[i, :3], tscan.OBJECT_POINT)
+             for i in (0, 11, 23)]
+    frames = FrameSet(
+        depth=np.stack([d.numpy() for d, _, _ in shots]),
+        color=np.stack([c.numpy() for _, c, _ in shots]),
+        poses=np.stack([T for _, _, T in shots]).astype(np.float32),
+        depth_scale=1000.0,
+        intrinsics=tuple(tscan.D435[k] for k in ("fx", "fy", "cx", "cy")))
+    pipe = FusionPipeline(
+        dims=(64,) * 3, origin=(0.6, 0.6, -0.05), voxel_size=0.3 / 63,
+        with_color=True, engine="dense", device="cpu")
+    pipe.integrate(frames)
+    mesh = pipe.extract_mesh().numpy()
+    lo = np.asarray(pipe.origin, np.float32)
+    return frames, mesh, (lo, lo + 63 * pipe.voxel_size)
+
+
+def test_close_route_matches_jax(three_pictures):
+    from reconplan_tpu.io.meshio import load_mesh
+
+    frames, mesh, bounds = three_pictures
+    assert len(mesh) > 100
+    obs_j, cams_j = jscan.build_observation_cloud(frames, max_points=8000)
+    obs_t, cams_t = tscan.build_observation_cloud(frames, max_points=8000,
+                                                  device="cpu")
+    np.testing.assert_allclose(obs_t, obs_j, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(cams_t, cams_j)
+    closed_j = jscan.poisson_close_mesh(obs_j, cams_j, depth=64)
+    closed_t = tscan.poisson_close_mesh(obs_t, cams_t, depth=64,
+                                        device="cpu")
+    assert abs(len(closed_t) - len(closed_j)) <= 0.01 * len(closed_j)
+    gj = jscan.close_gate_signals(mesh, closed_j, obs_j, frames=frames,
+                                  volume_bounds=bounds)
+    gt = tscan.close_gate_signals(mesh, closed_t, obs_t, frames=frames,
+                                  volume_bounds=bounds, device="cpu")
+    assert gt["best"] == gj["best"]
+    for k in ("hole_frac", "refuted_frac", "unobserved_frac"):
+        assert gt[k] == pytest.approx(gj[k], abs=2e-3), k
+    gt_v, gt_f = load_mesh(tscan.BANANA_MESH)
+    gt_v = gt_v + np.asarray(tscan.OBJECT_POINT)
+    ch = [tmetrics.chamfer_to_mesh(c.reshape(-1, 3), gt_v, gt_f,
+                                   n_surface_samples=50_000, device="cpu")[0]
+          for c in (closed_j, closed_t)]
+    assert ch[1] == pytest.approx(ch[0], rel=0.01)
 
 
 def test_redundancy_main_builds_into_its_out_folder(tmp_path):

@@ -15,9 +15,7 @@ exceptions, and no other:
 * ``key`` (a ``jax.random`` key) is ``generator`` (a ``torch.Generator``).
 
 Not parameters, so not walked here: the scan's command line takes
-``--device`` where the JAX one takes ``--platform``, and ``run_scan``
-raises ``NotImplementedError`` for the stitch and Poisson routes, which
-are not ported yet (``tests/test_torch_scan.py``).
+``--device`` where the JAX one takes ``--platform``.
 """
 
 import importlib
@@ -26,13 +24,15 @@ import inspect
 import pytest
 
 MODULES = [
-    "apps.redundancy", "apps.scan", "core.grids", "core.maths",
-    "grr.nearest_neighbors", "grr.paths", "grr.quality", "grr.resolution",
-    "grr.solver", "grr.workspace", "io.checkpoint", "io.config",
-    "io.frames", "io.meshio", "io.render", "kin.chain", "kin.collision",
-    "kin.ik", "kin.rob_parser", "kin.robot", "ops.marching", "ops.nn",
+    "apps.redundancy", "apps.scan", "apps.stitch", "core.grids",
+    "core.maths", "grr.nearest_neighbors", "grr.paths", "grr.quality",
+    "grr.resolution", "grr.solver", "grr.workspace", "io.checkpoint",
+    "io.config", "io.frames", "io.meshio", "io.render", "kin.chain",
+    "kin.collision", "kin.ik", "kin.rob_parser", "kin.robot",
+    "ops.features", "ops.icp", "ops.marching", "ops.nn", "ops.pointcloud",
     "ops.tsdf", "ops.tsdf_brick", "parallel.brick", "recon.fusion",
-    "recon.metrics", "utils.native", "utils.profiling",
+    "recon.metrics", "recon.poisson", "recon.stitcher", "utils.native",
+    "utils.profiling", "viz.html_export",
 ]
 RENAMED = {"mesh": "devices", "key": "generator"}
 DROPPED = {"interpret"}

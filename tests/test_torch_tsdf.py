@@ -28,11 +28,14 @@ from reconplan_tpu_torch.io.frames import FrameSet
 from reconplan_tpu_torch.kin import chain as tchain
 from reconplan_tpu_torch.kin import robot as trobot
 from reconplan_tpu_torch.kin.rob_parser import parse_rob
+from reconplan_tpu_torch.ops import pointcloud as tpc
 from reconplan_tpu_torch.ops import tsdf as ttsdf
 from reconplan_tpu_torch.ops import tsdf_brick as tb
 from reconplan_tpu_torch.parallel import make_sharded_brick_grid
 from reconplan_tpu_torch.recon import fusion as tfusion
 from reconplan_tpu_torch.recon import metrics as tmetrics
+from reconplan_tpu_torch.recon import poisson as tpoisson
+from reconplan_tpu_torch.recon import stitcher as tstitcher
 from reconplan_tpu_torch.utils import device as tdevice
 from test_tsdf_marching import make_sphere_depths
 from torch_parity import jax_eager
@@ -188,6 +191,26 @@ def _numpy_out(result):
 
 _planes = lambda v, dt: np.full((5, 8, 128), v, dt)  # noqa: E731
 
+
+def _ball(n=200):
+    """Points of a unit sphere and their outward normals, numpy."""
+    d = np.random.default_rng(0).normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return d, d.copy()
+
+
+def _gate(**kw):
+    tris = np.random.default_rng(1).normal(size=(20, 3, 3)).astype(
+        np.float32)
+    return tscan.close_gate_signals(tris[:10], tris, _ball()[0],
+                                    n_samples=100, **kw)
+
+
+def _dict_out(result):
+    """For an entry point that returns a dict of floats."""
+    assert isinstance(result, dict)
+    return torch.device("cpu")
+
 # every entry point that makes tensors from no tensor: (call without a
 # device, the same call on the CPU, where its result's device is found)
 ENTRY_POINTS = {
@@ -279,6 +302,26 @@ ENTRY_POINTS = {
     "DenseTopK": (lambda **kw: tnn.DenseTopK(**kw), lambda d: d.device),
     "build_roadmap": (_build_roadmap, lambda r: r[0].configs_t.device),
     "run_scan": (_run_scan, lambda r: torch.device(r["device"])),
+    "make_cloud": (lambda **kw: tpc.make_cloud(np.zeros((4, 3)), **kw),
+                   lambda c: c.points.device),
+    "backproject_depth": (
+        lambda **kw: tpc.backproject_depth(np.ones((4, 4)), 1.0, 1.0, 2.0,
+                                           2.0, **kw),
+        lambda c: c.points.device),
+    "RGBDStitcher": (
+        lambda **kw: tstitcher.RGBDStitcher(
+            tstitcher.PinholeIntrinsic(8, 8, 10.0, 10.0, 4.0, 4.0), **kw),
+        lambda st: st.device),
+    "poisson_reconstruct": (
+        lambda **kw: tpoisson.poisson_reconstruct(*_ball(), depth=8, **kw),
+        lambda tris: tris.device),
+    "build_observation_cloud": (
+        lambda **kw: tscan.build_observation_cloud(_small_frames(), **kw),
+        _numpy_out),
+    "poisson_close_mesh": (
+        lambda **kw: tscan.poisson_close_mesh(*_ball(), depth=8, **kw),
+        _numpy_out),
+    "close_gate_signals": (_gate, _dict_out),
     "get_so3_grid": (
         lambda **kw: tgrids.get_so3_grid(4, [0, 0, 1], [0.0, 0.0, 0.0], 2,
                                          **kw),
