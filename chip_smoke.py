@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port once on one CUDA card: the fusion paths,
 the flagship scan through its entry point with every route, the roadmap
-layer and the stitch.
+layer, the stitch and the teleop half.
 
     python3 chip_smoke.py
 
@@ -96,6 +96,28 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
               triangle counts within 1%); estimate_normals and the three
               ICPs on the card against the CPU (the same iterations, T
               within 1e-5)
+ 16. teleop   the teleop half on the card: (a) the four-arm teleop
+              benchmark (grr/teleop_batch.run_reference_benchmark) on
+              graph/ur10/rot_variable_yaw with its rgrr/ Random-GRR roadmap,
+              the first 50 of the 100 circle_random trajectories of the
+              reference protocol (4 s at 50 Hz, seed 7; a reduced depth,
+              see teleop_phase), converge_steps=100, rows batched: each
+              arm's success rate, n_valid, mean
+              DTW and mean ratio beside the circle_random row of
+              benchmarks/results/teleop_ur10_rvy_n100.json (the JAX
+              package's CPU run), the GRR fallback statistics, each arm's
+              seconds, one GRR tick at 50 rows and a block of 16 ticks
+              (kernels and copies, busy share); fails when an arm's success
+              rate is more than 0.10 from the table's. (b) teleop_solve
+              along one of those trajectories, synchronised each tick:
+              median, p90 and max ms against the UR10's 8 ms servo period.
+              (c) ServoExecutor.execute of data/golden/ctraj.txt on the
+              card against the CPU (traces within 1e-5, joint err mean
+              < 0.05 rad, EE err mean < 25 mm), timed. (d) run_teleop in
+              grr and rtde modes, SimRTDE(dynamics=True) with play_ctraj,
+              apps.eval_roadmap on rot_variable_yaw (phase 14's values),
+              one /tick through serve_teleop. It prints which of
+              matplotlib, PIL and pygame the machine has; it needs none.
 Launch counters are zeroed just before phase 5 and read after phase 5 (one
 bench batch) and after phase 6 (K1 and K2), zeroed before and read after
 each of phases 7 and 8 (K3), 11 (every ablation arm) and 12 (every probe
@@ -194,6 +216,16 @@ ROADMAPS = {
 }
 
 
+# the JAX package's four-arm teleop benchmark on graph/ur10/rot_variable_yaw
+# (100 trajectories a kind, seed 7, its CPU run): phase 16 reads its
+# circle_random row
+TELEOP_TABLE = os.path.join(REPO, "benchmarks", "results",
+                            "teleop_ur10_rvy_n100.json")
+TELEOP_ARMS = ("grr", "random_grr", "newton", "relaxed")
+# the UR10's servo period at its 125 Hz servo rate (BASELINE.md:17)
+SERVO_PERIOD_MS = 8.0
+
+
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
 
@@ -257,6 +289,34 @@ K1_OPS, K1_COLOR_OPS = 42, 12
 K2_OPS = 34
 
 
+def once_ms(fn):
+    """(fn's result, its ms by CUDA events around one call)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    out = fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return out, ev[0].elapsed_time(ev[1])
+
+
+def profiled(fn):
+    """(fn's result, the kernels and copies of one call under
+    torch.profiler, their ms on the card). The profiler slows the host,
+    not the kernels. The profiler's raw events are read, not
+    ``prof.events()``, whose Python objects cost about 70 us an event
+    (a 16-tick GRR block has 1.7 million)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA]
+    return out, len(ns), sum(ns) / 1e6
+
+
 def bound(nbytes, nops):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
     f32 operations over the f32 peak."""
@@ -301,6 +361,223 @@ def bound_fields(bound_pair, device_ms):
     b_ms, by = bound_pair
     return {"bound_ms": b_ms, "bound_by": by,
             "bound_share": b_ms / device_ms, "l2": "warm"}
+
+
+def _fmt(x, spec=".4f"):
+    return "none" if x is None else format(x, spec)
+
+
+def teleop_phase(card, n_traj=50):
+    """Phase 16: the four-arm teleop benchmark at the reference's width,
+    the teleop tick's latency, the servo model on the card against the
+    CPU, and the teleop apps on the card.
+
+    The benchmark tracks the first ``n_traj`` of the reference's 100
+    trajectories: all 100 took 732 s on an H100 at 700 W (before the GRR
+    engine planned a tick's rows in one batch), past what the smoke's
+    time limit leaves, and the GRR arms' host fallbacks grow with the
+    rows (the first 50: 366-445 s)."""
+    import importlib.util
+    import urllib.request
+
+    from reconplan_tpu_torch.apps import eval_roadmap
+    from reconplan_tpu_torch.apps.teleop import run_teleop
+    from reconplan_tpu_torch.benchmarks.bench_teleop import (
+        load_random_resolution)
+    from reconplan_tpu_torch.grr import RedundancyResolution
+    from reconplan_tpu_torch.grr import teleop_batch as tb
+    from reconplan_tpu_torch.grr.experiment import generate_trajectories
+    from reconplan_tpu_torch.io.config import load_problem
+    from reconplan_tpu_torch.io.drivers import SimRTDE, play_ctraj
+    from reconplan_tpu_torch.kin import make_robot
+    from reconplan_tpu_torch.kin.dynamics import ServoExecutor
+    from reconplan_tpu_torch.viz.teleop_server import serve_teleop
+
+    dev = torch.device("cuda")
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("matplotlib", "PIL", "pygame")}
+    phase("teleop", "host packages on this machine: "
+          + ", ".join(f"{m} {'yes' if h else 'no'}" for m, h in have.items())
+          + " (phase 16 imports none of them)")
+
+    # (a) the four-arm benchmark on the benchmark's roadmap
+    folder = os.path.join(REPO, "graph", "ur10", "rot_variable_yaw")
+    robot = make_robot(load_problem("ur10", "rot_variable_yaw"))
+    res = RedundancyResolution(robot)
+    res.load_workspace_graph(os.path.join(folder, "workspace.npz"))
+    res.load_resolution_graph(os.path.join(folder, "resolution.npz"))
+    res.load_solver_graph(os.path.join(folder, "solver.npz"))
+    rand = load_random_resolution(res, os.path.join(folder, "rgrr"))
+    if not (res.configs_t.is_cuda and rand.configs_t.is_cuda):
+        raise AssertionError("the teleop roadmaps are not on the card")
+    t0 = time.perf_counter()
+    trajs = generate_trajectories(robot, kind="circle_random",
+                                  n_trajectories=100, seed=7)[:n_traj]
+    gen_s = time.perf_counter() - t0
+    with open(TELEOP_TABLE) as f:
+        table = json.load(f)["per_kind"]["circle_random"]
+    t0 = time.perf_counter()
+    results, stats = tb.run_reference_benchmark(
+        res, {"circle_random": trajs}, random_resolution=rand,
+        converge_steps=100, verbose=True)
+    bench_s = time.perf_counter() - t0
+    row, st = results["circle_random"], stats["circle_random"]
+    gaps = {}
+    for arm in TELEOP_ARMS:
+        got, want = row[arm], table[arm]
+        gaps[arm] = got["success_rate"] - want["success_rate"]
+        phase("teleop", f"{arm}: success {got['success_rate']:.2f} (JAX "
+              f"table {want['success_rate']:.2f}, gap {gaps[arm]:+.2f}), "
+              f"n_valid {got['n_valid']} ({want['n_valid']}), mean DTW "
+              f"{_fmt(got['mean_dtw'])} ({want['mean_dtw']:.4f}), mean "
+              f"ratio {_fmt(got['mean_ratio'], '.2f')} "
+              f"({want['mean_ratio']:.2f}) | {st['seconds'][arm]:.1f} s")
+    for arm in ("grr", "random_grr"):
+        phase("teleop", f"{arm} fallbacks: " + json.dumps(st[arm]))
+    phase("teleop", f"the first {len(trajs)} of 100 circle_random "
+          f"trajectories of {len(trajs[0])} points (seed 7; the JAX table "
+          f"tracked all 100) generated in {gen_s:.1f} s | "
+          f"cold starts {st['seconds']['cold_starts']:.1f} s | "
+          f"run_reference_benchmark {bench_s:.1f} s | {card}")
+
+    # one GRR tick at the benchmark's width, and a block of 16 ticks
+    T = np.stack(trajs)
+    q0s, alive = tb.cold_starts(res, T)
+    tick = tb.make_grr_tick(res, T.shape[2])
+    steps = torch.as_tensor(np.swapaxes(T, 0, 1), dtype=torch.float32,
+                            device=dev)
+    qs = torch.as_tensor(q0s, dtype=torch.float32, device=dev)
+
+    def block():
+        q = qs
+        for t in range(16):
+            q_t, ok, _, cont, deep = tick(steps[t], q)
+            q = torch.where((ok & cont & ~deep)[:, None],
+                            tb._step_toward_j(robot, q, q_t, 0.04), q)
+        return q
+
+    tick(steps[0], qs)
+    _, tick_ms = once_ms(lambda: tick(steps[0], qs))
+    _, tick_kernels, tick_busy = profiled(lambda: tick(steps[0], qs))
+    _, block_ms = once_ms(block)
+    _, block_kernels, block_busy = profiled(block)
+    phase("teleop", f"one GRR tick at {len(qs)} rows: {tick_ms:.1f} ms "
+          f"(CUDA events), {tick_kernels} kernels and copies, "
+          f"{tick_busy:.2f} ms on the card | a block of 16 ticks: "
+          f"{block_ms:.1f} ms, {block_kernels} kernels and copies, "
+          f"{block_busy:.2f} ms on the card: busy share "
+          f"{block_busy / block_ms:.3f}")
+
+    # (b) the teleop tick's latency along one trajectory
+    row_i = int(np.flatnonzero(alive)[0])
+    q = q0s[row_i]
+    res.teleop_solve(T[row_i, 0], q, 0.04)  # the solver's handles
+    res.plan_path, res.path_index = None, 0
+    lat = []
+    for target in T[row_i]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q_new = res.teleop_solve(target, q, 0.04)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if q_new is not None:
+            q = np.asarray(q_new, dtype=np.float64)
+    lat = np.asarray(lat)
+    phase("teleop", f"teleop_solve along circle_random trajectory "
+          f"{row_i} ({len(lat)} targets, synchronised each tick): median "
+          f"{np.median(lat):.2f} ms, p90 {np.percentile(lat, 90):.2f} ms, "
+          f"max {lat.max():.2f} ms against the UR10's "
+          f"{SERVO_PERIOD_MS:.0f} ms servo period; "
+          f"{int((lat > SERVO_PERIOD_MS).sum())} of {len(lat)} ticks over it")
+
+    # (c) the servo model of the golden trajectory, the card against the CPU
+    times, golden = [], []
+    with open(os.path.join(GOLDEN, "ctraj.txt")) as f:
+        for line in f:
+            t, rest = line.split(",", 1)
+            times.append(float(t))
+            golden.append([float(x) for x in re.findall(NUM, rest)])
+    times = np.asarray(times, np.float32)
+    golden = np.asarray(golden, np.float32)
+    on_cpu_robot = make_robot(load_problem("ur10", "rot_variable_yaw"),
+                              device="cpu")
+    servo = ServoExecutor(robot)
+    servo.execute(times[:2], golden[:2])
+    t0 = time.perf_counter()
+    on_card = servo.execute(times, golden)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    _, servo_kernels, servo_busy = profiled(
+        lambda: servo.execute(times, golden))
+    t0 = time.perf_counter()
+    on_cpu = ServoExecutor(on_cpu_robot, device="cpu").execute(times, golden)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    servo_err = max(np.abs(on_card[k] - on_cpu[k]).max()
+                    for k in ("q_ticks", "qd_ticks"))
+    if not (servo.device.type == "cuda" and servo_err <= 1e-5
+            and on_card["joint_err_mean"] < 0.05
+            and on_card["ee_err_mean_mm"] < 25.0):
+        raise AssertionError(f"servo on the card: trace err {servo_err}, "
+                             f"joint err mean {on_card['joint_err_mean']}, "
+                             f"ee err mean {on_card['ee_err_mean_mm']} mm")
+    phase("teleop", f"ServoExecutor.execute of the golden ctraj.txt "
+          f"({len(on_card['q_ticks'])} ticks at 240 Hz): {card_ms:.1f} ms on "
+          f"the card (host clock, read back), {servo_kernels} kernels and "
+          f"copies, {servo_busy:.2f} ms on the card | the CPU {cpu_ms:.1f} "
+          f"ms | trace against the CPU's {servo_err:.3g} (limit 1e-5) | "
+          f"joint err mean {on_card['joint_err_mean']:.5f} rad (limit "
+          f"0.05), max {on_card['joint_err_max']:.5f}; EE err mean "
+          f"{on_card['ee_err_mean_mm']:.3f} mm (limit 25), max "
+          f"{on_card['ee_err_max_mm']:.3f}")
+
+    # (d) the apps on the card
+    t0 = time.perf_counter()
+    n_grr = run_teleop(mode="grr", script="wwwaaiijjddq", verbose=False)
+    grr_s = time.perf_counter() - t0
+    n_rtde = run_teleop(mode="rtde", script="wwssaaddiijjq", verbose=False)
+    sim = SimRTDE(robot, dynamics=True)
+    sim.move_joint(golden[0])
+    move_err = np.abs(np.asarray(sim.get_joint_values()) - golden[0]).max()
+    n_play = play_ctraj(sim, os.path.join(GOLDEN, "ctraj.txt"))
+    if not (n_grr == 11 and n_rtde == 12 and n_play == 500
+            and move_err < 5e-3 and sim.dynamics.device.type == "cuda"):
+        raise AssertionError(f"teleop apps: grr {n_grr} ticks, rtde "
+                             f"{n_rtde}, play_ctraj {n_play}, moveJ err "
+                             f"{move_err}")
+    m = eval_roadmap.main(["ur10", "rot_variable_yaw", "--dir", folder])
+    want = ROADMAPS["rot_variable_yaw"][2]
+    got = tuple(m[k] for k in ("n_nodes", "n_edges", "n_configured",
+                               "disconnection_ratio", "distance_ratio"))
+    if not (got[:3] == want[:3] and all(
+            abs(g - w) <= 1e-5 * abs(w) for g, w in zip(got[3:], want[3:]))):
+        raise AssertionError(f"eval_roadmap on the card: {got}, the CPU "
+                             f"test's {want}")
+    srv = serve_teleop(res, port=0, background=True)
+    try:
+        ee = np.asarray(srv.session.state()["ee"], dtype=float)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.server_address[1]}/tick",
+            data=json.dumps({"target": (ee + [0, 0, 0.05]).tolist()}).encode(),
+            method="POST")
+        reply = json.loads(urllib.request.urlopen(req, timeout=120).read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    if not (len(reply["links"]) >= 3 and not reply["status"].startswith(
+            "error")):
+        raise AssertionError(f"/tick answered {reply}")
+    phase("teleop", f"run_teleop grr {n_grr} ticks ({grr_s:.2f} s with "
+          f"the roadmap load), rtde {n_rtde} ticks | SimRTDE(dynamics=True) "
+          f"on the card: moveJ err {move_err:.2e} rad, play_ctraj "
+          f"{n_play} waypoints, servo joint err mean "
+          f"{sim.last_execution['joint_err_mean']:.5f} rad | "
+          f"apps.eval_roadmap ur10 rot_variable_yaw: {got[0]} nodes, "
+          f"{got[1]} edges, {got[2]} configured, disconnection "
+          f"{got[3]:.6f} %, distance ratio {got[4]:.6f} rad/m | one /tick "
+          f"of serve_teleop: {reply['status']}")
+    bad = {a: g for a, g in gaps.items() if abs(g) > 0.10}
+    if bad:
+        raise AssertionError(f"teleop arms part from the JAX table's "
+                             f"success rate by more than 0.10: {bad}")
 
 
 def main():
@@ -908,35 +1185,10 @@ def main():
     # --- 13. the scan loop through its entry point ------------------------
     import tempfile
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from reconplan_tpu_torch.apps.scan import make_arc_schedule, run_scan
     from reconplan_tpu_torch.grr import RedundancyResolution, scan_arc
     from reconplan_tpu_torch.io.config import load_problem
     from reconplan_tpu_torch.kin import make_robot
-
-    def once_ms(fn):
-        """(fn's result, its ms by CUDA events around one call)."""
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        out = fn()
-        ev[1].record()
-        torch.cuda.synchronize()
-        return out, ev[0].elapsed_time(ev[1])
-
-    def profiled(fn):
-        """(fn's result, the kernels and copies of one call under
-        torch.profiler, their ms on the card). The profiler slows the
-        host, not the kernels."""
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
-        return out, len(kernels), sum(
-            e.device_time_total for e in kernels) / 1e3
 
     t0 = time.perf_counter()
     robot = make_robot(load_problem("ur10", "rot_free"))
@@ -1357,6 +1609,9 @@ def main():
           f"estimate_normals min n . n' {nrm_dot:.8f} | "
           + "; ".join(icp_lines) + " (the card against the CPU)")
     del small, shots, grid_c, grid_h
+
+    # --- 16. the teleop half -----------------------------------------
+    teleop_phase(card)
 
     for arm, count in {**ablate_launches, **probe_launches}.items():
         if count == 0:

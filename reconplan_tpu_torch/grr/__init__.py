@@ -8,6 +8,10 @@ Port of ``reconplan_tpu.grr``:
   - :mod:`paths`              Cartesian path generators
   - :mod:`quality`            roadmap quality metrics and census
   - :mod:`nearest_neighbors`  the GNAT interface over dense top-k
+  - :mod:`experiment`         trajectory generation, the per-trajectory
+                              teleop solvers and their metrics
+  - :mod:`teleop_batch`       the teleop benchmark with the ticks of all
+                              trajectories batched
 
 Roadmaps are flat arrays checkpointed as .npz (``io.checkpoint``); the
 JAX package's files load as they are.
@@ -28,6 +32,7 @@ from reconplan_tpu_torch.grr.quality import (
 from reconplan_tpu_torch.grr.resolution import RedundancyResolution
 from reconplan_tpu_torch.grr.solver import ExpansionSolver
 from reconplan_tpu_torch.grr.workspace import RoadmapWorkspace
+from reconplan_tpu_torch.grr import experiment
 
 __all__ = [
     "RoadmapWorkspace",
@@ -36,6 +41,7 @@ __all__ = [
     "arc_interpolate",
     "census_reachability",
     "evaluate_roadmap",
+    "experiment",
     "get_arc_path",
     "get_linear_path",
     "linear_interpolate",

@@ -38,13 +38,14 @@ import torch
 
 from reconplan_tpu_torch.core import maths
 from reconplan_tpu_torch.grr.solver import ExpansionSolver
-from reconplan_tpu_torch.grr.workspace import RoadmapWorkspace, robot_device
+from reconplan_tpu_torch.grr.workspace import RoadmapWorkspace
 from reconplan_tpu_torch.io.checkpoint import (
     load_roadmap_npz,
     save_roadmap_npz,
 )
 from reconplan_tpu_torch.kin.ik import dls_ik_batch
 from reconplan_tpu_torch.ops.nn import _smallest, se3_pairwise
+from reconplan_tpu_torch.utils.device import robot_device
 from reconplan_tpu_torch.utils.native import GraphCore
 
 

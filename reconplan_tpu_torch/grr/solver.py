@@ -32,8 +32,8 @@ import numpy as np
 import torch
 
 from reconplan_tpu_torch.core import maths
-from reconplan_tpu_torch.grr.workspace import robot_device
 from reconplan_tpu_torch.kin.ik import dls_ik_batch
+from reconplan_tpu_torch.utils.device import robot_device
 from reconplan_tpu_torch.utils.native import GraphCore
 
 _MAX_BISECT_DEPTH = 6  # up to 64 segments per edge

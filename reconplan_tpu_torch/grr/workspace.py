@@ -22,18 +22,7 @@ from reconplan_tpu_torch.io.checkpoint import (
     save_roadmap_npz,
 )
 from reconplan_tpu_torch.ops.nn import se3_knn
-from reconplan_tpu_torch.utils.device import resolve_device
-
-
-def robot_device(robot, device):
-    """``device`` resolved (None: the card), which must be the robot's:
-    the roadmap's queries feed the robot's FK and IK."""
-    device = resolve_device(device)
-    if (device.type, device.index or 0) != (robot.device.type,
-                                            robot.device.index or 0):
-        raise ValueError(f"the robot is on {robot.device}, the roadmap was "
-                         f"asked for {device}")
-    return device
+from reconplan_tpu_torch.utils.device import robot_device
 
 
 class RoadmapWorkspace:

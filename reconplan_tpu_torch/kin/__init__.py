@@ -1,7 +1,7 @@
 """Kinematics: chain models, FK/Jacobian, batched DLS-IK, collision.
 
-Port of ``reconplan_tpu.kin`` (less ``kin.relaxed`` and ``kin.dynamics``).
-One kinematic core on torch tensors stands in for Klampt and PyBullet:
+Port of ``reconplan_tpu.kin``, with the servo model (``kin.dynamics``)
+and the RelaxedIK solver (``kin.relaxed``). One kinematic core on torch tensors stands in for Klampt and PyBullet:
 FK and Jacobians are closed-form over the parsed ``.rob`` chain, IK is
 damped least squares in one batched loop, and every function is
 batch-first, so thousands of solves run per call on the device.
@@ -33,8 +33,12 @@ from reconplan_tpu_torch.kin.robot import (
     Robot,
     make_robot,
 )
+from reconplan_tpu_torch.kin.dynamics import ServoExecutor
+from reconplan_tpu_torch.kin.relaxed import RelaxedIK
 
 __all__ = [
+    "ServoExecutor",
+    "RelaxedIK",
     "RobModel",
     "parse_rob",
     "KinematicModel",

@@ -8,6 +8,10 @@ while the others go on. Here that is one batched Python loop with a
 iteration count change only while the lane is live, and the loop ends
 early when no lane is (asked of the device every ``CHECK_EVERY``
 iterations, not every one: the question costs a host synchronisation).
+On the card each chunk of ``CHECK_EVERY`` iterations is one CUDA graph,
+captured at the first solve of a problem shape (lanes padded to a power
+of two) and replayed: an iteration is about 270 small kernels, which the
+host would otherwise issue one by one.
 
 Semantics kept from Klampt's solver, as in the JAX package:
   * ``max_iters``/``tolerance`` knobs with the same defaults (100, 1e-3).
@@ -26,6 +30,7 @@ TF32 enters.
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import torch
@@ -102,40 +107,84 @@ def dls_ik_batch(
     """
     dev = init_config.device
     B = init_config.shape[0]
-    active_idx = _index(tuple(active), dev)
-    qmin = model.qmin[active_idx]
-    qmax = model.qmax[active_idx]
     err_dim = 6 if use_rotation else 3
-    eye = torch.eye(err_dim, dtype=init_config.dtype, device=dev)
+    lam = torch.full((B,), damping, dtype=init_config.dtype, device=dev)
+    iters = torch.zeros(B, dtype=torch.int32, device=dev)
+    if dev.type == "cuda" and max_iters >= CHECK_EVERY and B:
+        # the chunks of CHECK_EVERY iterations replay a CUDA graph on
+        # lanes padded to a power of two (the padding repeats the last
+        # lane; each lane's answer is its own)
+        n = max(16, 1 << (B - 1).bit_length())
+        pad = [x if n == B else torch.cat([x, x[-1:].expand(
+            (n - B,) + x.shape[1:])]) for x in (target_pos, target_rot,
+                                               init_config, lam, iters)]
+        graph = _chunk_graph(model, tuple(active), ee_link, n, use_rotation,
+                             max_iters, tolerance, q_rest, dev)
+        q, e, err_norm, iters = (x[:B] for x in graph.run(*pad))
+    else:
+        step = _LMStep(model, tuple(active), ee_link, target_pos,
+                        target_rot, q_rest, max_iters, tolerance, err_dim)
+        state = step.start(init_config, lam, iters)
+        for it in range(max_iters):
+            if it % CHECK_EVERY == 0 and not bool(step.live(state).any()):
+                break
+            state = step(state)
+        q, e, _R, _t, err_norm, _lam, iters = state
 
-    def error_of(q_active):
+    pos_err = torch.linalg.norm(e[:, :3], dim=-1)
+    rot_err = (torch.linalg.norm(e[:, 3:6], dim=-1) if use_rotation
+               else torch.zeros_like(pos_err))
+    return IKResult(q, err_norm < tolerance, pos_err, rot_err, iters)
+
+
+class _LMStep:
+    """One Levenberg-Marquardt iteration of :func:`dls_ik_batch` on a
+    state (q, e, R, t, err_norm, lam, iters), with no host read: a lane
+    changes only while it is live."""
+
+    def __init__(self, model, active, ee_link, target_pos, target_rot,
+                 q_rest, max_iters, tolerance, err_dim):
+        dev = target_pos.device
+        self.model, self.active, self.ee_link = model, active, ee_link
+        self.target_pos, self.target_rot = target_pos, target_rot
+        self.q_rest, self.max_iters = q_rest, max_iters
+        self.tolerance, self.err_dim = tolerance, err_dim
+        self.active_idx = _index(active, dev)
+        self.qmin = model.qmin[self.active_idx]
+        self.qmax = model.qmax[self.active_idx]
+        self.eye = torch.eye(err_dim, dtype=target_pos.dtype, device=dev)
+
+    def error_of(self, q_active):
         """The stacked error (B, err_dim) and the link transforms."""
         # a fresh full joint vector a call (``q_rest.at[idx].set``)
-        q = q_rest.expand(B, -1).index_copy(1, active_idx, q_active)
-        R, t = fk_all(model, q)
-        e = target_pos - t[:, ee_link]
-        if use_rotation:
-            e = torch.cat([e, _rotation_error(target_rot, R[:, ee_link])],
-                          dim=-1)
+        q = self.q_rest.expand(q_active.shape[0], -1).index_copy(
+            1, self.active_idx, q_active)
+        R, t = fk_all(self.model, q)
+        e = self.target_pos - t[:, self.ee_link]
+        if self.err_dim == 6:
+            e = torch.cat([e, _rotation_error(self.target_rot,
+                                              R[:, self.ee_link])], dim=-1)
         return e, R, t
 
-    q = init_config
-    e, R, t = error_of(q)
-    err_norm = torch.linalg.norm(e, dim=-1)
-    lam = torch.full((B,), damping, dtype=q.dtype, device=dev)
-    iters = torch.zeros(B, dtype=torch.int32, device=dev)
-    for step in range(max_iters):
-        live = (iters < max_iters) & (err_norm >= tolerance)
-        if step % CHECK_EVERY == 0 and not bool(live.any()):
-            break
-        J = jacobian_from_fk(model, R, t, ee_link, active)[:, :err_dim]
+    def start(self, q, lam, iters):
+        e, R, t = self.error_of(q)
+        return q, e, R, t, torch.linalg.norm(e, dim=-1), lam, iters
+
+    def live(self, state):
+        return (state[6] < self.max_iters) & (state[4] >= self.tolerance)
+
+    def __call__(self, state):
+        q, e, R, t, err_norm, lam, iters = state
+        live = self.live(state)
+        J = jacobian_from_fk(self.model, R, t, self.ee_link,
+                             self.active)[:, :self.err_dim]
         # LM step: dq = J^T (J J^T + lambda^2 I)^{-1} e
         JJt = (J[:, :, None, :] * J[:, None, :, :]).sum(dim=-1)
-        A = JJt + (lam**2)[:, None, None] * eye
+        A = JJt + (lam**2)[:, None, None] * self.eye
         y = torch.linalg.solve_ex(A, e[:, :, None])[0]
         dq = (J * y).sum(dim=1)
-        q_try = torch.clamp(q + dq, qmin, qmax)
-        e_t, R_t, t_t = error_of(q_try)
+        q_try = torch.clamp(q + dq, self.qmin, self.qmax)
+        e_t, R_t, t_t = self.error_of(q_try)
         e_try = torch.linalg.norm(e_t, dim=-1)
         accept = live & (e_try < err_norm)  # a NaN error is never accepted
         q = torch.where(accept[:, None], q_try, q)
@@ -147,11 +196,85 @@ def dls_ik_batch(
         lam = torch.where(live, lam_next, lam)
         err_norm = torch.where(accept, e_try, err_norm)
         iters = iters + live.to(torch.int32)
+        return q, e, R, t, err_norm, lam, iters
 
-    pos_err = torch.linalg.norm(e[:, :3], dim=-1)
-    rot_err = (torch.linalg.norm(e[:, 3:6], dim=-1) if use_rotation
-               else torch.zeros_like(pos_err))
-    return IKResult(q, err_norm < tolerance, pos_err, rot_err, iters)
+
+class _ChunkGraph:
+    """CHECK_EVERY iterations of :class:`_LMStep` captured in one CUDA
+    graph for one problem shape, on static buffers that the replays
+    advance in place. The host issues one replay a chunk instead of about
+    1,500 kernels, and reads the live flag between chunks as the eager
+    loop does."""
+
+    def __init__(self, model, active, ee_link, n, use_rotation, max_iters,
+                 tolerance, q_rest, dev):
+        A = len(active)
+        self.target_pos = torch.zeros((n, 3), device=dev)
+        self.target_rot = torch.eye(3, device=dev).expand(n, 3, 3).clone()
+        self.step = _LMStep(model, active, ee_link, self.target_pos,
+                             self.target_rot, q_rest, max_iters, tolerance,
+                             6 if use_rotation else 3)
+        self.state = self.step.start(
+            torch.zeros((n, A), device=dev), torch.ones(n, device=dev),
+            torch.zeros(n, dtype=torch.int32, device=dev))
+        self.model = model  # keeps the captured tensors alive
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):  # warm-up: handles, caches, memory
+            self._advance()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self._advance()
+
+    def _advance(self):
+        state = self.state
+        for _ in range(CHECK_EVERY):
+            state = self.step(state)
+        for dst, src in zip(self.state, state):
+            dst.copy_(src)
+
+    def run(self, target_pos, target_rot, q, lam, iters):
+        """The solve from ``q`` with damping ``lam`` and counts ``iters``:
+        (q, e, err_norm, iters) on the static buffers."""
+        self.target_pos.copy_(target_pos)
+        self.target_rot.copy_(target_rot)
+        for dst, src in zip(self.state, self.step.start(q, lam, iters)):
+            dst.copy_(src)
+        for _ in range(self.step.max_iters // CHECK_EVERY):
+            if not bool(self.step.live(self.state).any()):
+                break
+            self.graph.replay()
+        state = self.state
+        for _ in range(self.step.max_iters % CHECK_EVERY):
+            if not bool(self.step.live(state).any()):
+                break
+            state = self.step(state)
+        q, e, _R, _t, err_norm, _lam, iters = state
+        return q.clone(), e.clone(), err_norm.clone(), iters.clone()
+
+
+# the most chunk graphs kept, least recently used dropped first
+_GRAPHS_KEPT = 32
+_graphs = collections.OrderedDict()
+
+
+def _chunk_graph(model, active, ee_link, n, use_rotation, max_iters,
+                 tolerance, q_rest, dev):
+    """The :class:`_ChunkGraph` of one problem shape, captured at first
+    use. Keyed by the model's and the rest vector's identity (an entry
+    holds both, so neither is freed while it is kept)."""
+    key = (id(model), active, ee_link, n, use_rotation, max_iters,
+           tolerance, id(q_rest), str(dev))
+    graph = _graphs.pop(key, None)
+    if graph is None:
+        graph = _ChunkGraph(model, active, ee_link, n, use_rotation,
+                            max_iters, tolerance, q_rest, dev)
+        graph.q_rest = q_rest
+    _graphs[key] = graph
+    while len(_graphs) > _GRAPHS_KEPT:
+        _graphs.popitem(last=False)
+    return graph
 
 
 def dls_ik(

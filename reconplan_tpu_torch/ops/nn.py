@@ -16,7 +16,9 @@ import torch
 
 
 def pairwise_sqdist(x, y, precision=None, center=True):
-    """Squared euclidean distances (N, D) x (M, D) -> (N, M).
+    """Squared euclidean distances (..., N, D) x (..., M, D) -> (..., N, M);
+    leading dimensions are a batch, each pair on its own (the JAX
+    function under ``vmap``).
 
     ``center=True`` subtracts the joint mean first: the matmul identity's
     cancellation error scales with |x||y|, and centring drops it by orders
@@ -24,14 +26,15 @@ def pairwise_sqdist(x, y, precision=None, center=True):
     and unused: full f32 with TF32 off is the only mode here.
     """
     if center:
-        mu = 0.5 * (x.mean(dim=0) + y.mean(dim=0))
+        mu = 0.5 * (x.mean(dim=-2, keepdim=True) + y.mean(dim=-2,
+                                                          keepdim=True))
         x = x - mu
         y = y - mu
     x2 = (x * x).sum(dim=-1, keepdim=True)
     y2 = (y * y).sum(dim=-1, keepdim=True)
     # (x2 + y2) - 2 xy, in place on the two (N, M) temporaries
-    d = x2 + y2.T
-    d.sub_(torch.matmul(x, y.T).mul_(2.0))
+    d = x2 + y2.transpose(-1, -2)
+    d.sub_(torch.matmul(x, y.transpose(-1, -2)).mul_(2.0))
     return d.clamp_(min=0.0)
 
 
@@ -62,13 +65,15 @@ def nearest_neighbor(queries, points, valid=None, row_chunk=2048):
 
 
 def se3_pairwise(points1, points2, position_weight=1.0, rotation_weight=0.3):
-    """SE3 distance matrix (N, 7) x (M, 7) -> (N, M):
+    """SE3 distance matrix (..., N, 7) x (..., M, 7) -> (..., N, M):
     ``w_p * ||p1 - p2|| + w_r * (1 - |q1.q2|)``, the workspace metric of
-    the GRR stack; position-only (D = 3) inputs give the position term."""
-    d_pos = torch.sqrt(pairwise_sqdist(points1[:, :3], points2[:, :3]))
+    the GRR stack; position-only (D = 3) inputs give the position term.
+    Leading dimensions are a batch, as in :func:`pairwise_sqdist`."""
+    d_pos = torch.sqrt(pairwise_sqdist(points1[..., :3], points2[..., :3]))
     if points1.shape[-1] <= 3 or points2.shape[-1] <= 3:
         return d_pos
-    qdot = torch.matmul(points1[:, 3:7], points2[:, 3:7].T)
+    qdot = torch.matmul(points1[..., 3:7],
+                        points2[..., 3:7].transpose(-1, -2))
     return position_weight * d_pos + rotation_weight * (1.0 - qdot.abs())
 
 

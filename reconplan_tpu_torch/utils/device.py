@@ -43,3 +43,14 @@ def resolve_device(device=None) -> torch.device:
             "on the CPU"
         )
     return dev
+
+
+def robot_device(robot, device):
+    """``device`` resolved (None: the card), which must be the robot's:
+    whatever is built for the robot feeds its FK and IK."""
+    device = resolve_device(device)
+    if (device.type, device.index or 0) != (robot.device.type,
+                                            robot.device.index or 0):
+        raise ValueError(f"the robot is on {robot.device}, and "
+                         f"{device} was asked for")
+    return device

@@ -1,10 +1,15 @@
-"""Interactive HTML export of point clouds: a self-contained HTML file
-with an embedded vanilla-JS orbit viewer (no CDN or network dependency):
-drag to orbit, wheel to zoom, shift-drag to pan.
+"""Interactive HTML exports: self-contained HTML files with an embedded
+vanilla-JS orbit viewer (no CDN or network dependency): drag to orbit,
+wheel to zoom, shift-drag to pan.
 
-Copy of ``export_cloud_html`` and what it uses (``_TEMPLATE``,
-``_write``) from ``reconplan_tpu.viz.html_export``, numpy only, so a page
-written here is the page the JAX package writes.
+Copy of ``reconplan_tpu.viz.html_export``, numpy only, so a page written
+here is the page the JAX package writes:
+
+  * :func:`export_roadmap_html` — workspace nodes colored by
+    configured/disconnected state, roadmap edges, the object point;
+  * :func:`export_cloud_html` — point clouds (e.g. stitched scans) with
+    optional RGB;
+  * :func:`export_mesh_html` — triangle meshes as wireframe + vertices.
 """
 
 from __future__ import annotations
@@ -121,6 +126,40 @@ def _write(path, title, data, legend=""):
     return path
 
 
+def export_roadmap_html(resolution, path, obj_pos=None, max_nodes=20000):
+    """Roadmap viewer: nodes green = configured, red = unconfigured;
+    edges green = continuous, red = broken, grey = untested."""
+    ws = resolution.workspace
+    solver = resolution.solver
+    pts = np.asarray(ws.points[:, :3], dtype=float)[:max_nodes]
+    colors = [
+        "#69db7c" if solver.has_config[i] else "#ff6b6b"
+        for i in range(len(pts))
+    ]
+    edges = []
+    for e, (i, j) in enumerate(np.asarray(ws.edges)):
+        if i >= len(pts) or j >= len(pts):
+            continue
+        both = solver.has_config[i] and solver.has_config[j]
+        kind = 0 if (both and solver.edge_connected[e]) else (1 if both else 2)
+        edges.append([int(i), int(j), kind])
+    data = {
+        "points": pts.tolist(),
+        "colors": colors,
+        "edges": edges,
+        "edge_colors": ["#2f9e44", "#e03131", "#495057"],
+    }
+    if obj_pos is not None:
+        data["marker"] = list(map(float, obj_pos))
+    n_cfg = int(solver.has_config.sum())
+    legend = (
+        f"nodes: {len(pts)} ({n_cfg} configured) - "
+        f"edges: {len(edges)} "
+        "(green=continuous, red=broken, grey=untested)"
+    )
+    return _write(path, "reconplan roadmap", data, legend)
+
+
 def export_cloud_html(points, path, colors=None, valid=None, max_points=60000):
     """Point-cloud viewer (e.g. a stitched scan)."""
     pts = np.asarray(points, dtype=float)
@@ -138,3 +177,15 @@ def export_cloud_html(points, path, colors=None, valid=None, max_points=60000):
         data["colors"] = [f"rgb({r},{g},{b})" for r, g, b in c255]
     return _write(path, "reconplan point cloud", data,
                   f"{len(pts)} points")
+
+
+def export_mesh_html(triangles, path, max_tris=40000):
+    """Triangle-soup viewer (marching-cubes / Poisson output)."""
+    tris = np.asarray(triangles, dtype=float)
+    if len(tris) > max_tris:
+        sel = np.linspace(0, len(tris) - 1, max_tris).astype(int)
+        tris = tris[sel]
+    pts = tris.reshape(-1, 3)
+    faces = np.arange(len(pts)).reshape(-1, 3)
+    data = {"points": pts.tolist(), "tris": faces.tolist()}
+    return _write(path, "reconplan mesh", data, f"{len(tris)} triangles")

@@ -9,6 +9,7 @@ nor the JAX package, so it also runs where JAX is not installed:
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -880,6 +881,39 @@ def test_ik_on_the_card_equals_the_cpu_in_lock_step(ur10_pair, use_rotation):
     assert torch.equal(a.success.cpu(), b.success)
 
 
+def test_ik_chunk_graph_equals_the_eager_loop(ur10_pair):
+    """On the card ``dls_ik_batch`` replays a CUDA graph of 4 LM
+    iterations on lanes padded to a power of two (37 -> 64): the same
+    iterations, successes and configurations (within 1e-6) as the
+    eager loop of the same steps on the 37 lanes, the second call from the
+    kept graph."""
+    from reconplan_tpu_torch.kin import ik
+
+    on_card, _ = ur10_pair
+    rng = np.random.default_rng(3)
+    qs = on_card.sample(37, rng=rng)
+    pts = on_card.fk_point_batch(qs)
+    pos, rot, _ = on_card._ik_targets(pts)
+    seeds = torch.as_tensor((qs + rng.normal(0, 0.4, qs.shape)).astype(
+        np.float32), device="cuda")
+    step = ik._LMStep(on_card.model, on_card._active_tuple, on_card.ee_link,
+                       pos, rot, on_card._q_rest, 100, 1e-3, 6)
+    state = step.start(seeds, torch.full((37,), 0.1, device="cuda"),
+                       torch.zeros(37, dtype=torch.int32, device="cuda"))
+    for it in range(100):
+        if it % ik.CHECK_EVERY == 0 and not bool(step.live(state).any()):
+            break
+        state = step(state)
+    for _ in range(2):
+        res = ik.dls_ik_batch(on_card.model, on_card._active_tuple,
+                              on_card.ee_link, pos, rot, seeds,
+                              on_card._q_rest)
+        assert torch.equal(res.iters, state[6])
+        assert torch.equal(res.success, state[4] < 1e-3)
+        assert (res.config - state[0]).abs().max().item() <= 1e-6
+    assert int(res.success.sum()) > 0
+
+
 def test_solve_ik_batch_on_the_card_reaches_its_targets(ur10_pair):
     on_card, _ = ur10_pair
     rng = np.random.default_rng(2)
@@ -919,6 +953,64 @@ def test_solve_batch_on_the_card_equals_the_cpu(ur10_pair):
     d = np.abs((qc - q + np.pi) % (2 * np.pi) - np.pi)[ok]
     assert d.max() <= 1e-4
     np.testing.assert_allclose(trc, tr, rtol=0, atol=1e-5)
+
+
+def _timed_golden():
+    times, qs = [], []
+    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+            __file__))), "data", "golden", "ctraj.txt")) as f:
+        for line in f:
+            t, rest = line.split(",", 1)
+            times.append(float(t))
+            qs.append([float(x) for x in re.findall(
+                r"-?\d+\.?\d*(?:[eE][+-]?\d+)?", rest)])
+    return np.asarray(times, np.float32), np.asarray(qs, np.float32)
+
+
+def test_servo_scan_on_the_card_equals_the_cpu(ur10_pair):
+    """``ServoExecutor.execute`` of the 500 timed golden configurations
+    (2,401 ticks): the card's trace within 1e-5 of the CPU's, and the
+    tracking statistics ``tests/test_kin.py`` asks of it."""
+    from reconplan_tpu_torch.kin.dynamics import ServoExecutor
+
+    times, qs = _timed_golden()
+    on_card, on_cpu = (ServoExecutor(rob, device=rob.device).execute(
+        times, qs) for rob in ur10_pair)
+    assert ServoExecutor(ur10_pair[0]).device.type == "cuda"
+    for key in ("q_ticks", "qd_ticks"):
+        assert np.abs(on_card[key] - on_cpu[key]).max() <= 1e-5, key
+    assert on_card["joint_err_mean"] < 0.05
+    assert on_card["ee_err_mean_mm"] < 25.0
+
+
+def test_grr_tick_on_the_card_equals_the_cpu(ur10_pair):
+    """One batched GRR tick of 16 rows on the committed rot_free roadmap
+    (toward points a few mm off other nodes; the last row out of reach):
+    the flags equal, ``q_t`` and the current points within 1e-4."""
+    from reconplan_tpu_torch.grr import RedundancyResolution
+    from reconplan_tpu_torch.grr.teleop_batch import make_grr_tick
+
+    out = []
+    for rob in ur10_pair:
+        res = RedundancyResolution(rob, rob.device)
+        res.load_resolution_graph(os.path.join(ROADMAP, "resolution.npz"))
+        res.load_workspace_graph(os.path.join(ROADMAP, "workspace.npz"))
+        rng = np.random.default_rng(7)
+        M = len(res.points)
+        a = rng.integers(0, M, 16)
+        b = (a + np.arange(1, 17) * 3) % M
+        qs = res.configs[a] + rng.normal(0, 0.01, (16, 6)).astype(np.float32)
+        targets = res.points[b][:, :3] + rng.uniform(-0.01, 0.01, (16, 3))
+        targets[-1] = [2.0, 2.0, 2.0]
+        out.append([x.cpu().numpy() for x in make_grr_tick(res, 3)(
+            targets, qs)])
+    (cq, cok, cpts, ccont, cdeep), (q, ok, pts, cont, deep) = out
+    for a, b in ((cok, ok), (ccont, cont), (cdeep, deep)):
+        np.testing.assert_array_equal(a, b)
+    assert ok[:-1].sum() >= 8 and not ok[-1]
+    d = np.abs((cq - q + np.pi) % (2 * np.pi) - np.pi)[ok]
+    assert d.max() <= 1e-4
+    assert np.abs(cpts - pts).max() <= 1e-4
 
 
 def test_graphcore_is_native_on_the_cards_machine(card):

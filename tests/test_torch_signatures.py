@@ -14,8 +14,9 @@ exceptions, and no other:
   tensors' device;
 * ``key`` (a ``jax.random`` key) is ``generator`` (a ``torch.Generator``).
 
-Not parameters, so not walked here: the scan's command line takes
-``--device`` where the JAX one takes ``--platform``.
+Not parameters, so not walked here: the scan's and the teleop
+benchmark's command lines take ``--device`` where the JAX ones take
+``--platform``.
 """
 
 import importlib
@@ -24,15 +25,17 @@ import inspect
 import pytest
 
 MODULES = [
-    "apps.redundancy", "apps.scan", "apps.stitch", "core.grids",
-    "core.maths", "grr.nearest_neighbors", "grr.paths", "grr.quality",
-    "grr.resolution", "grr.solver", "grr.workspace", "io.checkpoint",
-    "io.config", "io.frames", "io.meshio", "io.render", "kin.chain",
-    "kin.collision", "kin.ik", "kin.rob_parser", "kin.robot",
-    "ops.features", "ops.icp", "ops.marching", "ops.nn", "ops.pointcloud",
-    "ops.tsdf", "ops.tsdf_brick", "parallel.brick", "recon.fusion",
-    "recon.metrics", "recon.poisson", "recon.stitcher", "utils.native",
-    "utils.profiling", "viz.html_export",
+    "apps.eval_roadmap", "apps.record", "apps.redundancy", "apps.scan",
+    "apps.stitch", "apps.teleop", "core.grids", "core.maths",
+    "grr.experiment", "grr.nearest_neighbors", "grr.paths", "grr.quality",
+    "grr.resolution", "grr.solver", "grr.teleop_batch", "grr.workspace",
+    "io.checkpoint", "io.config", "io.drivers", "io.frames", "io.meshio",
+    "io.render", "kin.chain", "kin.collision", "kin.dynamics", "kin.ik",
+    "kin.relaxed", "kin.rob_parser", "kin.robot", "ops.features",
+    "ops.icp", "ops.marching", "ops.nn", "ops.pointcloud", "ops.tsdf",
+    "ops.tsdf_brick", "parallel.brick", "recon.fusion", "recon.metrics",
+    "recon.poisson", "recon.stitcher", "utils.native", "utils.profiling",
+    "viz.html_export", "viz.plots", "viz.teleop_server",
 ]
 RENAMED = {"mesh": "devices", "key": "generator"}
 DROPPED = {"interpret"}

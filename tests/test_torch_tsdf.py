@@ -211,6 +211,50 @@ def _dict_out(result):
     assert isinstance(result, dict)
     return torch.device("cpu")
 
+def _servo(**kw):
+    from reconplan_tpu_torch.kin.dynamics import ServoExecutor
+
+    return ServoExecutor(**kw)
+
+
+def _relaxed(**kw):
+    from reconplan_tpu_torch.kin.relaxed import RelaxedIK
+
+    return RelaxedIK(_planar(), **kw)
+
+
+def _sim_rtde(**kw):
+    from reconplan_tpu_torch.io.drivers import SimRTDE
+
+    return SimRTDE(_planar(), dynamics=True, **kw)
+
+
+def _run_teleop(**kw):
+    from reconplan_tpu_torch.apps.teleop import run_teleop
+
+    return run_teleop(mode="rtde", script="wq", verbose=False, **kw)
+
+
+def _reference_benchmark(**kw):
+    from reconplan_tpu_torch.grr.teleop_batch import run_reference_benchmark
+
+    return run_reference_benchmark(
+        tres.RedundancyResolution(_planar(), device="cpu"), {}, verbose=False,
+        **kw)
+
+
+def _serve_teleop(**kw):
+    """The teleop server on a port the system picks, shut at once; its
+    session's resolution tells the device."""
+    from reconplan_tpu_torch.viz.teleop_server import serve_teleop
+
+    res = tres.RedundancyResolution(_planar(), device="cpu")
+    srv = serve_teleop(res, port=0, q0=np.zeros(5), background=True, **kw)
+    srv.shutdown()
+    srv.server_close()
+    return srv
+
+
 # every entry point that makes tensors from no tensor: (call without a
 # device, the same call on the CPU, where its result's device is found)
 ENTRY_POINTS = {
@@ -326,6 +370,17 @@ ENTRY_POINTS = {
         lambda **kw: tgrids.get_so3_grid(4, [0, 0, 1], [0.0, 0.0, 0.0], 2,
                                          **kw),
         _numpy_out),
+    "ServoExecutor": (_servo, lambda ex: ex.device),
+    "RelaxedIK": (_relaxed, lambda s: s.q.device),
+    "SimRTDE": (_sim_rtde, lambda sim: sim.dynamics.device),
+    # a tick count and empty results: the CPU call only has to run
+    "run_teleop": (_run_teleop,
+                   lambda ticks: ticks == 1 and torch.device("cpu")),
+    "run_reference_benchmark": (
+        _reference_benchmark,
+        lambda out: out == ({}, {}) and torch.device("cpu")),
+    "serve_teleop": (_serve_teleop,
+                     lambda srv: srv.session.resolution.device),
 }
 
 

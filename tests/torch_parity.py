@@ -194,3 +194,33 @@ def roadmap_pair(robots, name, solver=True):
         if solver:
             res.load_solver_graph(os.path.join(folder, "solver.npz"))
     return pair
+
+
+def small_roadmap_pair(folder):
+    """``tests/test_grr.py``'s ``small_roadmap`` recipe (40 random arc
+    nodes of the rot_free UR10, expanded from the problem's seed
+    configurations), built by the port on the CPU in about 3 s and saved
+    to ``folder``, and the same arrays loaded into a JAX
+    RedundancyResolution: (JAX, port). The JAX package's own build of the
+    recipe takes about 38 s on the CPU and gives configurations within
+    2.4e-7 rad of the port's."""
+    from reconplan_tpu.grr import resolution as jres
+    from reconplan_tpu_torch.grr import resolution as tres
+    from reconplan_tpu_torch.io.config import load_problem
+
+    jr, tr = ur10_pair("rot_free")
+    opts = load_problem("ur10", "rot_free")
+    port = tres.RedundancyResolution(tr, device="cpu")
+    port.sample_workspace([0.75, 0.75, 0.0], 40, 1, "random")
+    port.global_expansion(np.asarray(opts["init_configs"], np.float32),
+                          verbose=False)
+    port.build_resolution_graph_and_nn()
+    names = ("workspace", "solver", "resolution")
+    for name in names:
+        getattr(port, f"save_{name}_graph")(os.path.join(folder,
+                                                         f"{name}.npz"))
+    ref = jres.RedundancyResolution(jr)
+    for name in names:
+        getattr(ref, f"load_{name}_graph")(os.path.join(folder,
+                                                        f"{name}.npz"))
+    return ref, port
