@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port once on one CUDA card: the fusion paths,
 the flagship scan through its entry point with every route, the roadmap
-layer, the stitch and the teleop half.
+layer, the stitch, the teleop half and the mesh layer.
 
     python3 chip_smoke.py
 
@@ -118,11 +118,30 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
               apps.eval_roadmap on rot_variable_yaw (phase 14's values),
               one /tick through serve_teleop. It prints which of
               matplotlib, PIL and pygame the machine has; it needs none.
+ 17. parallel the mesh layer (parallel/mesh|fusion|ik|brick) on the card:
+              (a) the bench scene at 512^3 dense, z-sharded over 4 shards
+              on the card and gathered, bit-identical to one
+              ops.tsdf.integrate_frames, and phase 6's banana orbit with
+              color at 256^3 the same; host seconds of each and the
+              weighted voxels of each slab. (b) phase 13's IK fallback
+              batch of 1,024 over 4 shards against one dls_ik_batch:
+              bit-identical, or else the largest difference printed,
+              every successful lane within 1e-3 m of its target by FK and
+              the success counts within 0.5%. (c) a world of one under
+              NCCL (file:// store): make_mesh() and 4 shards of the rank,
+              each running (a) depth-only, (b) and the brick path at 512^3
+              (its cap from the active mask: no brick drops), all
+              bit-identical to the single-process runs; NCCL's version.
+              (d) one line: several ranks cannot share one card, so the
+              multi-rank path is held on the CPU by
+              tests/test_torch_parallel_dist.py
 Launch counters are zeroed just before phase 5 and read after phase 5 (one
 bench batch) and after phase 6 (K1 and K2), zeroed before and read after
 each of phases 7 and 8 (K3), 11 (every ablation arm) and 12 (every probe
-arm), and zeroed just before run_scan in phase 13 and read just after it
-(K1 and K2 again): each kernel must have been launched by its paths.
+arm), zeroed just before run_scan in phase 13 and read just after it
+(K1 and K2 again), and zeroed at the start of phase 17 and read at its end
+(K3: the bricked reference and the 5 launches of (c)): each kernel must
+have been launched by its paths.
 
 The line before the last is a JSON summary of the kernels. For each:
   ms, device_ms   the kernel's device time per launch: 20 launches
@@ -580,6 +599,198 @@ def teleop_phase(card, n_traj=50):
                              f"success rate by more than 0.10: {bad}")
 
 
+def parallel_phase(card, frames):
+    """Phase 17: the mesh layer on the card of ``frames`` (phase 6's
+    banana orbit). (a) the bench scene at 512^3 and ``frames`` with color
+    at 256^3, z-sharded over 4 shards on the card and gathered:
+    bit-identical to one grid. (b) phase 13's IK fallback batch of 1,024 over 4 shards against one
+    ``dls_ik_batch``. (c) a world of one under NCCL: (a) depth-only, (b)
+    and the brick path at 512^3 on ``make_mesh()`` and on 4 shards of the
+    rank, bit-identical to the single-process runs. Returns K3's
+    launches in the phase (the brick path's reference and (c))."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from reconplan_tpu_torch.bench import N, ORIGIN, VOXEL, make_frames
+    from reconplan_tpu_torch.grr import scan_arc
+    from reconplan_tpu_torch.io.config import load_problem
+    from reconplan_tpu_torch.kin import make_robot
+    from reconplan_tpu_torch.kin.ik import dls_ik_batch
+    from reconplan_tpu_torch.ops import tsdf as tsdf_ops
+    from reconplan_tpu_torch.ops import tsdf_brick as tb
+    from reconplan_tpu_torch.ops.kernels import brick_integrate_fixed
+    from reconplan_tpu_torch.parallel import (
+        gather_brick_grid, gather_grid, make_mesh, make_sharded_brick_grid,
+        make_sharded_grid, sharded_ik_solve, sharded_integrate_frames,
+        sharded_integrate_frames_bricked)
+
+    t_phase = time.perf_counter()
+    dev = frames.depth.device
+    mesh4 = make_mesh(devices=[dev] * 4)
+    brick_integrate_fixed.launches = 0
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def dense_sharded(mesh, dims, origin, voxel, depths, poses, K,
+                      colors=None):
+        """(gathered grid, host s, weighted voxels a slab)."""
+        def run():
+            g = make_sharded_grid(dims, origin, voxel, mesh=mesh,
+                                  with_color=colors is not None)
+            return sharded_integrate_frames(g, depths, poses, *K, mesh=mesh,
+                                            colors=colors)
+        g, dt = sync_s(run)
+        weighted = [int((s.weight > 0).sum()) for s in g.slabs]
+        return gather_grid(g), dt, weighted
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(
+            (a.sdf, a.weight, a.color), (b.sdf, b.weight, b.color)))
+
+    # --- (a) z-sharded dense fusion --------------------------------------
+    depths, poses, K = make_frames(32)
+    d_all = torch.as_tensor(depths, device=dev)
+    p_all = torch.as_tensor(poses, device=dev)
+    bench = ((N,) * 3, ORIGIN, VOXEL, d_all, p_all, K)
+    one, one_s = sync_s(lambda: tsdf_ops.integrate_frames(
+        tsdf_ops.make_grid(*bench[:3], device=dev), d_all, p_all, *K))
+    got, sh_s, weighted = dense_sharded(mesh4, *bench)
+    if not same(got, one) or one.weight.max().item() <= 0:
+        raise AssertionError("the z-sharded bench grid differs from one grid")
+    phase("parallel", f"(a) bench scene, 32 frames 640x480 -> {N}^3 dense, "
+          f"4 z-slabs on the card: bit-identical to one grid | one grid "
+          f"{one_s:.3f} s, 4 shards in turn {sh_s:.3f} s (host clock, "
+          f"synchronised) | weighted voxels a slab {weighted} | {card}")
+    del got
+    nb = N // 2
+    banana = ((nb,) * 3, (-0.2, -0.2, -0.15), 0.4 / (nb - 1), frames.depth,
+              frames.poses, frames.intrinsics)
+    colors = frames.color.float() / 255.0
+    one_c, one_c_s = sync_s(lambda: tsdf_ops.integrate_frames(
+        tsdf_ops.make_grid(*banana[:3], with_color=True, device=dev),
+        frames.depth, frames.poses, *frames.intrinsics, colors=colors))
+    got, sh_c_s, weighted_c = dense_sharded(mesh4, *banana, colors=colors)
+    if not same(got, one_c) or one_c.weight.max().item() <= 0:
+        raise AssertionError("the z-sharded banana grid differs from one "
+                             "grid")
+    phase("parallel", f"(a) banana orbit with color, 32 frames -> {nb}^3 "
+          f"dense, 4 z-slabs: sdf, weight and color bit-identical to one "
+          f"grid | one grid {one_c_s:.3f} s, 4 shards {sh_c_s:.3f} s | "
+          f"weighted voxels a slab {weighted_c}")
+    del got, one_c, colors
+
+    # --- (b) sharded IK ---------------------------------------------------
+    robot = make_robot(load_problem("ur10", "rot_free"), device=dev)
+    arc64 = scan_arc(OBJECT_POINT, radius=0.3, height=0.15, num_points=64,
+                     device=dev)
+    targets = np.repeat(arc64[:, :3], 16, axis=0)
+    seeds = robot.sample(len(targets), rng=np.random.default_rng(0))
+    pos, rotm, use_rot = robot._ik_targets(targets)
+
+    def one_batch():
+        return dls_ik_batch(robot.model, robot._active_tuple, robot.ee_link,
+                            pos, rotm, robot._tensor(seeds), robot._q_rest,
+                            max_iters=100, tolerance=1e-3,
+                            use_rotation=use_rot)
+
+    def sharded(mesh):
+        return sharded_ik_solve(robot, targets, seeds, mesh=mesh)
+
+    one_batch()  # the first call of a lane count captures its CUDA graph
+    ref, ik_ms = once_ms(one_batch)
+    sharded(mesh4)
+    (q, ok), sh_ms = once_ms(lambda: sharded(mesh4))
+    ik_same = torch.equal(q, ref.config) and torch.equal(ok, ref.success)
+    n_ok, n_ref = int(ok.sum()), int(ref.success.sum())
+    reach = (robot.fk_point_batch(q[ok])[:, :3] - torch.as_tensor(
+        targets, device=dev)[ok]).norm(dim=-1).max().item()
+    if not ik_same:
+        phase("parallel", f"(b) the shards part from the one batch: max "
+              f"|dq| {(q - ref.config).abs().max().item():.3g} rad, "
+              f"{int((q != ref.config).any(dim=1).sum())} lanes differ, "
+              f"success {n_ok} against {n_ref}")
+        if not (reach < 1e-3 and abs(n_ok - n_ref) <= 0.005 * len(targets)):
+            raise AssertionError(f"sharded IK: worst FK miss {reach} m, "
+                                 f"success {n_ok} against {n_ref}")
+    phase("parallel", f"(b) IK batch of {len(targets)} over 4 shards of "
+          f"{len(targets) // 4}: "
+          + ("bit-identical to one batch" if ik_same else "held by outcome")
+          + f", success {n_ok} (one batch {n_ref}), worst FK miss "
+          f"{reach:.3g} m | one batch {ik_ms:.1f} ms, 4 shards in turn "
+          f"{sh_ms:.1f} ms (CUDA events)")
+
+    # --- (c) a world of one under NCCL -----------------------------------
+    one_b, n_one = tb.integrate_frames_bricked(
+        tb.make_brick_grid((N,) * 3, ORIGIN, VOXEL, device=dev), d_all,
+        p_all, *K, frames_per_dispatch=32, dilate_active=False)
+    mask = tb.active_brick_mask(one_b.brick_dims, one_b.origin, VOXEL,
+                                one_b.trunc, d_all,
+                                torch.linalg.inv(p_all).contiguous(),
+                                *(float(np.float32(v)) for v in K))
+    k3_before = brick_integrate_fixed.launches
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            meshes = {"make_mesh()": make_mesh(),
+                      "4 shards of the rank": make_mesh(devices=[dev] * 4)}
+            for name, mesh in meshes.items():
+                if mesh.group is None:
+                    raise AssertionError("make_mesh() found no process group")
+                got, g_s, _ = dense_sharded(mesh, *bench)
+                if not same(got, one):
+                    raise AssertionError(f"{name}: the z-sharded grid under "
+                                         "NCCL differs from one grid")
+                del got
+                q_g, ok_g = sharded(mesh)
+                q_ref, ok_ref = ((ref.config, ref.success) if mesh.size == 1
+                                 else (q, ok))
+                if not (torch.equal(q_g, q_ref) and torch.equal(ok_g, ok_ref)):
+                    raise AssertionError(f"{name}: sharded IK under NCCL "
+                                         "differs from the same split in one "
+                                         "process")
+                counts = mask.reshape(mesh.size, -1).sum(dim=1).tolist()
+                cap = -(-max(counts) // 1024) * 1024
+                g_nbl, n_sh = sharded_integrate_frames_bricked(
+                    make_sharded_brick_grid((N,) * 3, ORIGIN, VOXEL,
+                                            mesh=mesh), d_all, p_all, *K,
+                    max_active_per_device=cap)
+                gathered = gather_brick_grid(g_nbl)
+                if not (int(n_sh) == n_one
+                        and torch.equal(gathered.sdf, one_b.sdf)
+                        and torch.equal(gathered.weight, one_b.weight)):
+                    raise AssertionError(f"{name}: the brick-sharded grid "
+                                         "under NCCL differs from the "
+                                         "bricked run")
+                del g_nbl, gathered
+                lines.append(f"{name}: {mesh.size} shard(s), dense {g_s:.3f}"
+                             f" s, IK and bricks (active {counts}, cap {cap})"
+                             " bit-identical")
+            nccl = ".".join(map(str, torch.cuda.nccl.version()))
+        finally:
+            meshes = mesh = None  # they hold the group (parallel.mesh.Mesh)
+            dist.destroy_process_group()
+    k3_group = brick_integrate_fixed.launches - k3_before
+    if k3_group != 1 + 4:
+        raise AssertionError(f"K3 launched {k3_group} times by the brick "
+                             "path under NCCL, not 5")
+    phase("parallel", f"(c) a world of one under NCCL {nccl} (file:// "
+          f"store): " + " | ".join(lines) + f" | K3 launches {k3_group}")
+    phase("parallel", "(d) more than one rank cannot run on one card (NCCL "
+          "refuses two ranks on one device, gloo does not all-gather CUDA "
+          "tensors): the multi-rank path is held on the CPU by "
+          "tests/test_torch_parallel_dist.py (two gloo processes of 4 "
+          f"shards) | phase 17 {time.perf_counter() - t_phase:.1f} s")
+    return brick_integrate_fixed.launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -607,7 +818,7 @@ def main():
         W as PROBE_W, _launch as probe_launch, blocks_per_sm as probe_blocks,
         grid_size as probe_grid_size)
     from reconplan_tpu_torch.parallel import (
-        gather_brick_grid, make_sharded_brick_grid,
+        gather_brick_grid, make_mesh, make_sharded_brick_grid,
         sharded_integrate_frames_bricked)
     from reconplan_tpu_torch.recon.fusion import FusionPipeline
     from reconplan_tpu_torch.recon.metrics import (
@@ -975,8 +1186,8 @@ def main():
         raise AssertionError(f"a shard would drop bricks: {counts} active, "
                              f"cap {per_shard}")
     brick_integrate_fixed.launches = 0
-    g_nbl = make_sharded_brick_grid((N,) * 3, ORIGIN, VOXEL,
-                                    devices=[dev] * shards)
+    g_nbl = make_sharded_brick_grid(
+        (N,) * 3, ORIGIN, VOXEL, mesh=make_mesh(devices=[dev] * shards))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     g_nbl, n_sharded = sharded_integrate_frames_bricked(
@@ -1613,6 +1824,10 @@ def main():
     # --- 16. the teleop half -----------------------------------------
     teleop_phase(card)
 
+    # --- 17. the mesh layer: z-sharded dense, sharded IK, NCCL ----------
+    k3_parallel = parallel_phase(card, frames)
+    launches["brick_integrate_fixed"] += k3_parallel
+
     for arm, count in {**ablate_launches, **probe_launches}.items():
         if count == 0:
             raise AssertionError(f"its tool never launched arm {arm}")
@@ -1675,6 +1890,7 @@ def main():
               "reconplan_tpu/ops/tsdf_brick.py:503", k3,
               launches=launches["brick_integrate_fixed"],
               launches_per_batch=per_batch["brick_integrate_fixed"],
+              launches_parallel_phase=k3_parallel,
               **{k: k3[k] for k in ("real_bricks", "padding", "grid",
                                     "registers", "occupancy",
                                     "device_ms_by_padded_len")}),

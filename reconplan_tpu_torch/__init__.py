@@ -26,7 +26,8 @@ kin         .rob parser, kinematic chain (FK, Jacobian), batched DLS IK,
 grr         Cartesian path generators (the scan arc), roadmaps
 ops         point clouds, ICP, FPFH + RANSAC, dense TSDF and raycast, brick
             TSDF, marching cubes, nearest neighbours, kernels
-parallel    brick-sharded fusion over a list of devices
+parallel    device meshes (one process or a torch.distributed group),
+            z-sharded dense and brick-sharded fusion, sharded IK
 recon       fusion pipeline, RGBD stitcher, Poisson reconstruction, Chamfer
             and point-to-mesh metrics
 viz         the HTML point-cloud viewer

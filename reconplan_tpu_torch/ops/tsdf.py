@@ -4,8 +4,11 @@ Port of ``reconplan_tpu.ops.tsdf``: ``TSDFGrid``, ``make_grid``,
 ``integrate_frames``, ``extract_surface_points`` and ``raycast_depth``.
 It keeps the JAX engine's per-frame update order and its z-chunking
 (chunks of ~16M voxels bound the temporaries at 512^3), so the same
-inputs give the same floats op for op. It is the CPU oracle of the brick path and of its color
-semantics, and runs on either device.
+inputs give the same floats op for op. ``integrate_slab`` sweeps a z
+range of a grid with the whole grid's chunks, which is how a z-sharded
+grid (``parallel.fusion``) gives the one grid's bits. It is the CPU
+oracle of the brick path and of its color semantics, and runs on either
+device.
 """
 
 from __future__ import annotations
@@ -96,12 +99,14 @@ def tsdf_grid_to_numpy(grid: TSDFGrid) -> dict:
     }
 
 
-def _iota(shape, dim, device):
-    """f32 index plane along ``dim`` (lax.broadcasted_iota)."""
+def _iota(shape, dim, device, start=0):
+    """f32 index plane along ``dim`` (lax.broadcasted_iota), counting from
+    ``start``."""
     n = shape[dim]
     view = [1] * len(shape)
     view[dim] = n
-    return torch.arange(n, dtype=torch.float32, device=device).view(view)
+    return torch.arange(start, start + n, dtype=torch.float32,
+                        device=device).view(view)
 
 
 def _voxel_world_coords(grid: TSDFGrid):
@@ -117,13 +122,14 @@ def _voxel_world_coords(grid: TSDFGrid):
     return grid.origin + coords * grid.voxel_size
 
 
-def _chunk_cam_coords(shape, origin, z0, voxel, T_w2c):
-    """Camera coordinates of a z-chunk's voxels, as 9 scalar multiply-adds
-    over index planes (never an (..., 3) world tensor)."""
+def _chunk_cam_coords(shape, origin, z0, z_off, voxel, T_w2c):
+    """Camera coordinates of the voxels of a z-chunk from its row ``z_off``
+    on, as 9 scalar multiply-adds over index planes (never an (..., 3)
+    world tensor)."""
     dev = origin.device
     wx = origin[0] + _iota(shape, 2, dev) * voxel
     wy = origin[1] + _iota(shape, 1, dev) * voxel
-    wz = z0 + _iota(shape, 0, dev) * voxel
+    wz = z0 + _iota(shape, 0, dev, z_off) * voxel
     R = T_w2c[:3, :3]
     t = T_w2c[:3, 3]
     cx_ = R[0, 0] * wx + R[0, 1] * wy + R[0, 2] * wz + t[0]
@@ -132,16 +138,18 @@ def _chunk_cam_coords(shape, origin, z0, voxel, T_w2c):
     return cx_, cy_, cz_
 
 
-def _integrate_chunk(sdf, weight, color, z0, origin, voxel,
+def _integrate_chunk(sdf, weight, color, z0, z_off, origin, voxel,
                      depths, colors, T_w2c_all, params):
-    """Fold all F frames into one z-chunk of the grid (the JAX engine's
-    per-frame update, :func:`reconplan_tpu.ops.tsdf._integrate_chunk`)."""
+    """Fold all F frames into the rows of one z-chunk of the grid from its
+    row ``z_off`` on (the JAX engine's per-frame update,
+    :func:`reconplan_tpu.ops.tsdf._integrate_chunk`)."""
     fx, fy, cx, cy, depth_scale, depth_max, trunc, max_weight = params
     F = depths.shape[0]
     Hd, Wd = depths.shape[1], depths.shape[2]
 
     for f in range(F):
-        x, y, z = _chunk_cam_coords(sdf.shape, origin, z0, voxel, T_w2c_all[f])
+        x, y, z = _chunk_cam_coords(sdf.shape, origin, z0, z_off, voxel,
+                                    T_w2c_all[f])
         z_safe = torch.where(z.abs() < 1e-6, 1e-6, z)
         ui = torch.round(x / z_safe * fx + cx).to(torch.int32)
         vi = torch.round(y / z_safe * fy + cy).to(torch.int32)
@@ -168,6 +176,16 @@ def _integrate_chunk(sdf, weight, color, z0, origin, voxel,
     return sdf, weight, color
 
 
+def _chunking(D, H, W):
+    """(n_chunks, Dc): the z-chunks of a grid D deep, ~16M voxels each to
+    bound temporaries (as the JAX engine cuts them)."""
+    target = 1 << 24
+    n_chunks = 1
+    while (D % (2 * n_chunks) == 0) and (D // n_chunks) * H * W > target:
+        n_chunks *= 2
+    return n_chunks, D // n_chunks
+
+
 def integrate_frames(
     grid: TSDFGrid,
     depths,  # (F, H, W) raw depth
@@ -184,7 +202,31 @@ def integrate_frames(
     written once per chunk for the whole batch. Poses are camera->world,
     inverted once. Returns a new grid; the input grid is left as it was.
     """
-    dev = grid.sdf.device
+    return integrate_slab(grid, 0, grid.sdf.shape[0], depths,
+                          poses_cam_to_world, fx, fy, cx, cy, colors=colors,
+                          depth_scale=depth_scale, depth_max=depth_max,
+                          max_weight=max_weight)
+
+
+def integrate_slab(slab: TSDFGrid, z_lo, grid_depth, depths,
+                   poses_cam_to_world, fx, fy, cx, cy, colors=None,
+                   depth_scale=1000.0, depth_max=3.0,
+                   max_weight=64.0) -> TSDFGrid:
+    """:func:`integrate_frames` on the rows ``[z_lo, z_lo + len)`` of a
+    grid ``grid_depth`` voxels deep. ``slab`` holds those rows (sdf,
+    weight, color) and the whole grid's origin, voxel size and trunc.
+
+    The sweep cuts the whole grid into its z-chunks, gives each chunk its
+    own ``z0`` and indexes a voxel by its row in the chunk, so every voxel
+    of a slab rounds as it does in the whole grid's sweep, bit for bit,
+    wherever the slab's bounds fall. Returns the new slab.
+    """
+    dev = slab.sdf.device
+    Dl, H, W = slab.sdf.shape
+    z_hi = z_lo + Dl
+    if not 0 <= z_lo <= z_hi <= grid_depth:
+        raise ValueError(f"rows [{z_lo}, {z_hi}) are not in a grid "
+                         f"{grid_depth} deep")
     depths = torch.as_tensor(depths, dtype=torch.float32, device=dev)
     poses = torch.as_tensor(poses_cam_to_world, dtype=torch.float32, device=dev)
     T_w2c = torch.linalg.inv(poses)
@@ -193,36 +235,31 @@ def integrate_frames(
     f32 = lambda v: float(np.float32(v))  # noqa: E731  (JAX's jnp.float32)
     depth_scale = scalar_tensor(depth_scale, dev)
     params = (f32(fx), f32(fy), f32(cx), f32(cy), depth_scale, depth_max,
-              grid.trunc, max_weight)
-    D, H, W = grid.sdf.shape
-    # chunk to ~16M voxels to bound temporaries (as the JAX engine does)
-    target = 1 << 24
-    n_chunks = 1
-    while (D % (2 * n_chunks) == 0) and (D // n_chunks) * H * W > target:
-        n_chunks *= 2
-    Dc = D // n_chunks
+              slab.trunc, max_weight)
+    n_chunks, Dc = _chunking(grid_depth, H, W)
 
-    has_color = grid.has_color
-    z0s = grid.origin[2] + (
+    has_color = slab.has_color
+    z0s = slab.origin[2] + (
         torch.arange(n_chunks, dtype=torch.float32, device=dev) * Dc
-        * grid.voxel_size
+        * slab.voxel_size
     )
-    sdf_out = torch.empty_like(grid.sdf)
-    w_out = torch.empty_like(grid.weight)
-    col_out = torch.empty_like(grid.color) if has_color else grid.color
-    for k in range(n_chunks):
-        sl = slice(k * Dc, (k + 1) * Dc)
+    sdf_out = torch.empty_like(slab.sdf)
+    w_out = torch.empty_like(slab.weight)
+    col_out = torch.empty_like(slab.color) if has_color else slab.color
+    for k in range(z_lo // Dc, -(-z_hi // Dc)):
+        a, b = max(z_lo, k * Dc), min(z_hi, (k + 1) * Dc)
+        sl = slice(a - z_lo, b - z_lo)
         s_k, w_k, c_k = _integrate_chunk(
-            grid.sdf[sl], grid.weight[sl],
-            grid.color[sl] if has_color else None,
-            z0s[k], grid.origin, grid.voxel_size, depths,
+            slab.sdf[sl], slab.weight[sl],
+            slab.color[sl] if has_color else None,
+            z0s[k], a - k * Dc, slab.origin, slab.voxel_size, depths,
             colors if has_color else None, T_w2c, params,
         )
         sdf_out[sl] = s_k
         w_out[sl] = w_k
         if has_color:
             col_out[sl] = c_k
-    return grid._replace(sdf=sdf_out, weight=w_out, color=col_out)
+    return slab._replace(sdf=sdf_out, weight=w_out, color=col_out)
 
 
 def extract_surface_points(grid: TSDFGrid, weight_min: float = 1.0,

@@ -48,6 +48,7 @@ from reconplan_tpu_torch.ops.kernels.gather_probe import ARMS as PROBE_ARMS
 from reconplan_tpu_torch.ops.kernels.gather_probe import GRID as PROBE_GRID
 from reconplan_tpu_torch.parallel import (
     gather_brick_grid,
+    make_mesh,
     make_sharded_brick_grid,
     sharded_integrate_frames_bricked,
 )
@@ -190,7 +191,8 @@ def test_bricked_and_sharded_paths_launch_k3(chunk, card):
     seen = w_b > 0
     assert torch.equal(w_b[seen], dense.weight[seen])
     assert (sdf_b - dense.sdf)[seen].abs().max().item() <= 1e-6
-    g_nbl = make_sharded_brick_grid(DIMS, ORIGIN, VOX, devices=[card] * 4)
+    g_nbl = make_sharded_brick_grid(DIMS, ORIGIN, VOX,
+                                    mesh=make_mesh(devices=[card] * 4))
     g_nbl, n_sh = sharded_integrate_frames_bricked(
         g_nbl, chunk["depths"], chunk["poses"], *K,
         max_active_per_device=64)
@@ -924,6 +926,62 @@ def test_solve_ik_batch_on_the_card_reaches_its_targets(ur10_pair):
     assert q.is_cuda and ok.float().mean().item() > 0.3
     reach = (on_card.fk_point_batch(q)[:, :3] - pts[:, :3]).norm(dim=-1)
     assert reach[ok].max().item() < 1e-3
+
+
+# --- the mesh layer on the card ---------------------------------------------
+
+
+@pytest.mark.parametrize("n_shards", [4, 17])
+def test_z_sharded_dense_on_the_card_equals_one_grid(card, n_shards):
+    """A (272, 256, 256) grid is two z-chunks of 136 rows, the bench
+    sphere across their boundary (4 mm voxels): 4 slabs of 68 and 17 of
+    16 (one spans row 136) on the card, gathered, give the one grid's
+    sdf, weight and color bit for bit."""
+    from reconplan_tpu_torch.parallel import (
+        gather_grid, make_sharded_grid, sharded_integrate_frames)
+
+    depths, poses, K = make_frames(4, H=120, W=160, fx=150.0, fy=150.0)
+    gen = torch.Generator(device=card).manual_seed(0)
+    colors = torch.rand((4, 120, 160, 3), generator=gen, device=card)
+    dims, vox = (272, 256, 256), 0.004
+    origin = (-0.512, -0.512, -136 * vox)
+    one = ttsdf.integrate_frames(
+        ttsdf.make_grid(dims, origin, vox, with_color=True, device=card),
+        depths, poses, *K, colors=colors)
+    assert (one.weight[:136] > 0).sum() > 10_000
+    assert (one.weight[136:] > 0).sum() > 10_000
+    mesh = make_mesh(devices=[card] * n_shards)
+    g = make_sharded_grid(dims, origin, vox, mesh=mesh, with_color=True)
+    got = gather_grid(sharded_integrate_frames(g, depths, poses, *K,
+                                               colors=colors))
+    assert got.sdf.is_cuda
+    for a, b in zip((got.sdf, got.weight, got.color),
+                    (one.sdf, one.weight, one.color)):
+        assert torch.equal(a, b)
+
+
+def test_sharded_ik_on_the_card_equals_one_batch(card):
+    """256 problems of the scan arc over 4 shards of 64 on the card
+    against one ``dls_ik_batch`` of 256 (graphs of 64 lanes against one
+    of 256)."""
+    from reconplan_tpu_torch.grr import scan_arc
+    from reconplan_tpu_torch.io.config import load_problem
+    from reconplan_tpu_torch.kin import make_robot
+    from reconplan_tpu_torch.kin.ik import dls_ik_batch
+    from reconplan_tpu_torch.parallel import sharded_ik_solve
+
+    robot = make_robot(load_problem("ur10", "rot_free"))
+    arc = scan_arc([0.75, 0.75, 0.0], radius=0.3, height=0.15, num_points=16)
+    targets = np.repeat(arc[:, :3], 16, axis=0)
+    seeds = robot.sample(len(targets), rng=np.random.default_rng(0))
+    pos, rot, use_rot = robot._ik_targets(targets)
+    ref = dls_ik_batch(robot.model, robot._active_tuple, robot.ee_link, pos,
+                       rot, robot._tensor(seeds), robot._q_rest,
+                       use_rotation=use_rot)
+    q, ok = sharded_ik_solve(robot, targets, seeds,
+                             mesh=make_mesh(devices=[card] * 4))
+    assert q.is_cuda and int(ok.sum()) > 0
+    assert torch.equal(ok, ref.success) and torch.equal(q, ref.config)
 
 
 # --- the roadmap layer and the scan on the card ---------------------------

@@ -16,10 +16,11 @@ import pytest
 import torch
 
 from reconplan_tpu.parallel import brick as jpb
-from reconplan_tpu.parallel.mesh import make_mesh
+from reconplan_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from reconplan_tpu_torch.ops import tsdf_brick as tb
 from reconplan_tpu_torch.parallel import (
     gather_brick_grid,
+    make_mesh,
     make_sharded_brick_grid,
     sharded_brick_grid_from_numpy,
     sharded_brick_grid_to_numpy,
@@ -37,6 +38,10 @@ VOX = 0.3 / 31
 CPU8 = ["cpu"] * 8
 
 
+def _mesh(n=8):
+    return make_mesh(devices=["cpu"] * n)
+
+
 @pytest.fixture(scope="module")
 def scene():
     return make_sphere_depths(n_views=2, H=128, W=256, fx=120.0, fy=120.0)
@@ -45,7 +50,7 @@ def scene():
 @pytest.fixture(scope="module")
 def port_sharded(scene):
     depths, poses, K = scene
-    g_nbl = make_sharded_brick_grid(DIMS, ORIGIN, VOX, devices=CPU8)
+    g_nbl = make_sharded_brick_grid(DIMS, ORIGIN, VOX, mesh=_mesh())
     assert g_nbl[1] == 4 and len(g_nbl[0].sdf) == 8
     return sharded_integrate_frames_bricked(
         g_nbl, depths, poses, *K, max_active_per_device=64)
@@ -66,7 +71,7 @@ def test_sharded_matches_single_grid_bitexact(scene, port_sharded):
 
 def test_sharded_matches_jax_sharded(scene, port_sharded):
     depths, poses, K = scene
-    mesh = make_mesh(8)
+    mesh = jax_make_mesh(8)
     gj = jpb.make_sharded_brick_grid(DIMS, ORIGIN, VOX, mesh=mesh)
     with same_inverse():
         gj, na_j = jpb.sharded_integrate_frames_bricked(
@@ -87,7 +92,7 @@ def test_sharded_matches_jax_sharded(scene, port_sharded):
 def test_sharded_state_carries_from_jax():
     """A JAX sharded grid, gathered to numpy, becomes a port sharded grid
     plane for plane, and both gather to the same single grid."""
-    mesh = make_mesh(8)
+    mesh = jax_make_mesh(8)
     rng = np.random.default_rng(5)
     gj, nbl = jpb.make_sharded_brick_grid(DIMS, ORIGIN, VOX, mesh=mesh)
     sdf = rng.uniform(-1, 1, gj.sdf.shape).astype(np.float32)
@@ -96,7 +101,7 @@ def test_sharded_state_carries_from_jax():
                      weight=jax.device_put(w, gj.weight.sharding))
     g_nbl = sharded_brick_grid_from_numpy(
         np.asarray(gj.sdf), np.asarray(gj.weight), gj.dims,
-        np.asarray(gj.origin), gj.voxel_size, gj.trunc, CPU8)
+        np.asarray(gj.origin), gj.voxel_size, gj.trunc, _mesh())
     assert g_nbl[1] == nbl
     back = sharded_brick_grid_to_numpy(g_nbl)
     np.testing.assert_array_equal(back["sdf"], sdf)
@@ -111,7 +116,7 @@ def test_sharded_state_carries_from_jax():
 def test_shard_cap_drops_bricks_and_count_stays_unclamped(scene,
                                                          port_sharded):
     depths, poses, K = scene
-    g_nbl = make_sharded_brick_grid(DIMS, ORIGIN, VOX, devices=CPU8)
+    g_nbl = make_sharded_brick_grid(DIMS, ORIGIN, VOX, mesh=_mesh())
     g_nbl, na = sharded_integrate_frames_bricked(
         g_nbl, depths, poses, *K, max_active_per_device=1)
     assert int(na) == int(port_sharded[1])
@@ -124,4 +129,4 @@ def test_shard_cap_drops_bricks_and_count_stays_unclamped(scene,
 
 def test_bricks_must_divide_into_shards():
     with pytest.raises(ValueError, match="divisible"):
-        make_sharded_brick_grid(DIMS, ORIGIN, VOX, devices=["cpu"] * 5)
+        make_sharded_brick_grid(DIMS, ORIGIN, VOX, mesh=_mesh(5))

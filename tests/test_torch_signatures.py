@@ -7,8 +7,6 @@ The walk pairs the modules of ``reconplan_tpu_torch`` with those of
 class constructor and public method that both define. The stated
 exceptions, and no other:
 
-* ``mesh`` (a ``jax.sharding.Mesh``) is ``devices`` (a list of torch
-  devices) in the port;
 * ``interpret`` (run a Pallas kernel in interpret mode) has no
   counterpart: a wrapper picks its kernel or its plain version by the
   tensors' device;
@@ -33,11 +31,12 @@ MODULES = [
     "io.render", "kin.chain", "kin.collision", "kin.dynamics", "kin.ik",
     "kin.relaxed", "kin.rob_parser", "kin.robot", "ops.features",
     "ops.icp", "ops.marching", "ops.nn", "ops.pointcloud", "ops.tsdf",
-    "ops.tsdf_brick", "parallel.brick", "recon.fusion", "recon.metrics",
+    "ops.tsdf_brick", "parallel.brick", "parallel.fusion", "parallel.ik",
+    "parallel.mesh", "recon.fusion", "recon.metrics",
     "recon.poisson", "recon.stitcher", "utils.native", "utils.profiling",
     "viz.html_export", "viz.plots", "viz.teleop_server",
 ]
-RENAMED = {"mesh": "devices", "key": "generator"}
+RENAMED = {"key": "generator"}
 DROPPED = {"interpret"}
 
 

@@ -133,14 +133,15 @@ ch, _, _ = chamfer_distance(tris.reshape(-1, 3), tris.reshape(-1, 3))
 assert float(ch) == 0.0
 from reconplan_tpu_torch.ops import tsdf_brick as tb
 from reconplan_tpu_torch.parallel import (
-    gather_brick_grid, make_sharded_brick_grid,
+    gather_brick_grid, make_mesh, make_sharded_brick_grid,
     sharded_integrate_frames_bricked)
 g, n = tb.integrate_frames_bricked(
     tb.make_brick_grid((32,) * 3, (-0.16,) * 3, 0.32 / 31, device="cpu"),
     d, p, *K, dilate_active=False)
 s, _ = sharded_integrate_frames_bricked(
     make_sharded_brick_grid((32,) * 3, (-0.16,) * 3, 0.32 / 31,
-                            devices=["cpu"] * 2), d, p, *K)
+                            mesh=make_mesh(devices=["cpu"] * 2)),
+    d, p, *K)
 assert n > 0 and torch.equal(gather_brick_grid(s).sdf, g.sdf)
 assert not [m for m in sys.modules if m.startswith("jax")
             and sys.modules[m] is not None]

@@ -31,7 +31,10 @@ from reconplan_tpu_torch.kin.rob_parser import parse_rob
 from reconplan_tpu_torch.ops import pointcloud as tpc
 from reconplan_tpu_torch.ops import tsdf as ttsdf
 from reconplan_tpu_torch.ops import tsdf_brick as tb
+from reconplan_tpu_torch.parallel import fusion as tfusion_sharded
+from reconplan_tpu_torch.parallel import ik as tparallel_ik
 from reconplan_tpu_torch.parallel import make_sharded_brick_grid
+from reconplan_tpu_torch.parallel import mesh as tmesh
 from reconplan_tpu_torch.recon import fusion as tfusion
 from reconplan_tpu_torch.recon import metrics as tmetrics
 from reconplan_tpu_torch.recon import poisson as tpoisson
@@ -255,6 +258,20 @@ def _serve_teleop(**kw):
     return srv
 
 
+def _cpu_mesh(kw):
+    """``mesh=`` of two shards on ``kw``'s device, or nothing."""
+    return {"mesh": tmesh.make_mesh(devices=[kw["device"]] * 2)} if kw else {}
+
+
+def _sharded_ik(**kw):
+    robot = trobot.Planar("planar_5", [[-0.5, 0.5], [-0.5, 0.5], [0, 0]],
+                          [0, 0, 1], device="cpu")
+    return tparallel_ik.sharded_ik_solve(
+        robot, np.full((2, 3), 0.3, np.float32),
+        np.zeros((2, robot.num_joints), np.float32), max_iters=2,
+        **_cpu_mesh(kw))
+
+
 # every entry point that makes tensors from no tensor: (call without a
 # device, the same call on the CPU, where its result's device is found)
 ENTRY_POINTS = {
@@ -273,9 +290,17 @@ ENTRY_POINTS = {
             (16, 16, 32), (0, 0, 0), 0.01, 0.05, **kw),
         lambda g: g.sdf.device),
     "make_sharded_brick_grid": (
-        lambda **kw: make_sharded_brick_grid(
-            *_SMALL, **({"devices": [kw["device"]] * 2} if kw else {})),
+        lambda **kw: make_sharded_brick_grid(*_SMALL, **_cpu_mesh(kw)),
         lambda g: g[0].sdf[0].device),
+    "make_mesh": (
+        lambda **kw: tmesh.make_mesh(
+            **({"devices": [kw["device"]] * 2} if kw else {})),
+        lambda m: m.devices[0]),
+    "make_sharded_grid": (
+        lambda **kw: tfusion_sharded.make_sharded_grid(*_SMALL,
+                                                       **_cpu_mesh(kw)),
+        lambda g: g.slabs[0].sdf.device),
+    "sharded_ik_solve": (_sharded_ik, lambda r: r[0].device),
     "FusionPipeline": (
         lambda **kw: tfusion.FusionPipeline(
             dims=_SMALL[0], origin=_SMALL[1], voxel_size=_SMALL[2], **kw),
