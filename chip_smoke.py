@@ -135,13 +135,44 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
               (d) one line: several ranks cannot share one card, so the
               multi-rank path is held on the CPU by
               tests/test_torch_parallel_dist.py
+ 18. benchmarks the port's measurement tools (reconplan_tpu_torch/
+              benchmarks/) on the card through their main, each with its
+              check: bench_fusion at its full width (the banana orbit, 32
+              frames of 640x480, 256^3 and 512^3; Chamfer at 512^3 <= 1.0
+              mm, K2 and K1 launched); bench_poisson (Chamfer <= 1.0 mm),
+              bench_nn (1M points: the first 64 queries' neighbours equal
+              a CPU se3_knn; one chunk's selection by ops.nn._smallest
+              timed beside torch.topk alone) and eval_poisson_fidelity
+              (finite, the screened bumpy residual <= 1.0 mm) at their
+              defaults;
+              bench_stitch's pose-seeded arm on the lone banana at 8
+              frames and 8,192 slots, and on the tabletop at 2 frames and
+              the default 65,536 / 16,384 slots (each Chamfer within 10%
+              of the port's CPU run of that command, PORT_STITCH_CPU_MM
+              and PORT_STITCH_2F_CPU_MM), then both arms at the default
+              slots and STITCH_FRAMES frames (timing; the pose-free arm
+              with its rescued and dropped frames), diag_posefree at 8
+              frames of one arc (every frame's pose error within
+              POSEFREE_MAX_DEG and POSEFREE_MAX_MM);
+              bench_grr at 40 roadmap nodes (>= 490 of 500 waypoints
+              solved, K2 and K1 launched), eval_scan_coverage of its mesh,
+              and expand_coverage (no fewer configured nodes) and
+              refine_roadmap (0% disconnection) on its roadmap, written
+              to a temporary directory; dtw_gap at 5 circle_random
+              trajectories on graph/ur10/rot_variable_yaw (each arm's
+              success within 0.2 of the JAX package's table, the greedy
+              re-seed's DTW no worse than the roadmap seeds'). Each
+              reduced depth is printed with the default it replaces, and
+              each tool's seconds
 Launch counters are zeroed just before phase 5 and read after phase 5 (one
 bench batch) and after phase 6 (K1 and K2), zeroed before and read after
 each of phases 7 and 8 (K3), 11 (every ablation arm) and 12 (every probe
 arm), zeroed just before run_scan in phase 13 and read just after it
 (K1 and K2 again), and zeroed at the start of phase 17 and read at its end
-(K3: the bricked reference and the 5 launches of (c)): each kernel must
-have been launched by its paths.
+(K3: the bricked reference and the 5 launches of (c)), and zeroed at the
+start of phase 18 and read after bench_fusion, zeroed just before
+bench_grr and read just after it, and read at the phase's end (K1 and K2):
+each kernel must have been launched by its paths.
 
 The line before the last is a JSON summary of the kernels. For each:
   ms, device_ms   the kernel's device time per launch: 20 launches
@@ -173,7 +204,8 @@ The line before the last is a JSON summary of the kernels. For each:
                   yardstick of time only.
 K1's entry also has vs_old_design (the first design's device time over
 K1's, same call), arm_full_device_ms (the ablation arm `full` in the same
-turns) and launches_per_scan (phase 13, as K2's entry), K2's graph_floor_ms (a tiny torch op in a CUDA graph);
+turns), launches_per_scan (phase 13), launches_per_bench_fusion and
+launches_per_bench_grr (phase 18; K2's entry too), K2's graph_floor_ms (a tiny torch op in a CUDA graph);
 the ablation and probe entries give each arm's numbers under "arms", and
 at the top
 those of K5's `full`, K4's `smem_window` and the probe's `baseline`. The
@@ -243,6 +275,31 @@ TELEOP_TABLE = os.path.join(REPO, "benchmarks", "results",
 TELEOP_ARMS = ("grr", "random_grr", "newton", "relaxed")
 # the UR10's servo period at its 125 Hz servo rate (BASELINE.md:17)
 SERVO_PERIOD_MS = 8.0
+# the port's bench_stitch, pose-seeded, from one CPU run each (python -m
+# reconplan_tpu_torch.benchmarks.bench_stitch --device cpu
+# --arms pose-seeded + the flags): its Chamfer (mm), which phase 18 holds
+# the card's run of the same command to within 10%. STITCH_SMALL: the
+# lone banana at 8 frames and 8,192 / 4,096 slots. STITCH_2F: the
+# tabletop at the default 65,536 / 16,384 slots, cut to 2 frames, since
+# each frame of the quadratic passes at those slots takes minutes on a
+# CPU. The run of both arms at STITCH_FRAMES frames (default 32; cut to
+# keep phase 18 in its budget) is timed, not compared
+STITCH_SMALL = ["--frames", "8", "--arcs", "4", "--no-floor", "--capacity",
+                "8192", "--frame-capacity", "4096"]
+PORT_STITCH_CPU_MM = 1.1134265223518014
+STITCH_2F = ["--frames", "2", "--arcs", "1"]
+PORT_STITCH_2F_CPU_MM = 1.034  # as printed; the JAX script's too
+STITCH_FRAMES = 8
+# diag_posefree at 8 frames of one arc (steps of 19-41 degrees) at the
+# default slots: the largest rotation (deg) and translation (mm) error of
+# a registered frame that phase 18 accepts
+POSEFREE_FRAMES = ["--frames", "8", "--arcs", "1"]
+POSEFREE_MAX_DEG, POSEFREE_MAX_MM = 5.0, 25.0
+# the JAX package's DTW-gap table on graph/ur10/rot_variable_yaw (25
+# trajectories a kind, seed 7, its CPU run): phase 18 prints its
+# circle_random rows beside the port's
+DTW_TABLE = os.path.join(REPO, "benchmarks", "results",
+                         "dtw_gap_ur10_rvy.json")
 
 
 def phase(name, msg):
@@ -789,6 +846,239 @@ def parallel_phase(card, frames):
           "tests/test_torch_parallel_dist.py (two gloo processes of 4 "
           f"shards) | phase 17 {time.perf_counter() - t_phase:.1f} s")
     return brick_integrate_fixed.launches
+
+
+def benchmarks_phase(card):
+    """Phase 18: every tool of ``reconplan_tpu_torch/benchmarks/`` that
+    the earlier phases do not run, on the card through its ``main``, each
+    with its check. Returns K2's and K1's launches in the phase, in the
+    ``bench_fusion`` run and in the ``bench_grr`` run."""
+    import tempfile
+
+    from reconplan_tpu_torch.benchmarks import (
+        bench_fusion, bench_grr, bench_nn, bench_poisson, bench_stitch,
+        diag_posefree, dtw_gap, eval_poisson_fidelity, eval_scan_coverage,
+        expand_coverage, refine_roadmap)
+    from reconplan_tpu_torch.io.meshio import save_ply
+    from reconplan_tpu_torch.ops.kernels import active_mask, brick_integrate
+    from reconplan_tpu_torch.ops.nn import _smallest, se3_knn, se3_pairwise
+
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    def kernel_launches():
+        return {"active_mask": active_mask.launches,
+                "brick_integrate": brick_integrate.launches}
+
+    active_mask.launches = 0
+    brick_integrate.launches = 0
+
+    # (a) the banana orbit at full width: 32 frames of 640x480, 256^3 and
+    # 512^3, REPS batches after a warm one
+    rows = run("bench_fusion", bench_fusion.main)
+    per_fusion = kernel_launches()
+    ch = rows[-1]["chamfer_mm"]
+    if rows[-1]["grid"] != 512 or ch is None or ch > 1.0:
+        raise AssertionError(f"bench_fusion: Chamfer {ch} mm at 512^3 > 1.0")
+    if min(per_fusion.values()) == 0:
+        raise AssertionError(f"bench_fusion launched {per_fusion}")
+    phase("benchmarks", "bench_fusion (defaults: 32 frames, 256^3 and "
+          "512^3): " + "; ".join(
+              f"{r['grid']}^3 {r['fps']} frames/s, {r['active_bricks']} "
+              f"active bricks, {r['triangles']} triangles, Chamfer "
+              f"{r['chamfer_mm']} mm" for r in rows)
+          + f" | K2 / K1 launches {json.dumps(per_fusion)} | "
+          f"{seconds['bench_fusion']:.1f} s | {card}")
+
+    # (b) Poisson of the banana samples, at its defaults
+    row = run("bench_poisson", bench_poisson.main)
+    if not (row["triangles"] > 0 and row["chamfer_mm"] <= 1.0):
+        raise AssertionError(f"bench_poisson: {row}")
+    phase("benchmarks", f"bench_poisson (defaults): solve "
+          f"{row['solve_seconds']} s, {row['triangles']} triangles, Chamfer "
+          f"{row['chamfer_mm']} mm (<= 1.0) | {seconds['bench_poisson']:.1f} "
+          "s")
+
+    # (c) the SE3 k-NN at 1M points, its first 64 queries again on the CPU
+    row, _, idx = run("bench_nn", bench_nn.main)
+    pts, queries = bench_nn.make_points(row["n_points"], row["n_queries"])
+    _, idx_cpu = se3_knn(torch.as_tensor(queries[:64]),
+                         torch.as_tensor(pts), row["k"])
+    if not torch.equal(idx[:64].cpu(), idx_cpu):
+        raise AssertionError("bench_nn: the card's neighbours of the first "
+                             "64 queries are not the CPU's")
+    # one chunk's candidate selection (512 rows x 1M): the tie-ordered
+    # _smallest beside torch.topk alone, which the order-blind selection
+    # it replaced cost (topk, then a sort of the chosen few)
+    tile = se3_pairwise(torch.as_tensor(queries[:512], device="cuda"),
+                        torch.as_tensor(pts, device="cuda"))
+    n_cand = 4 * row["k"] + 16
+    topk_ms = events_ms(lambda: torch.topk(tile, n_cand, dim=1,
+                                           largest=False), reps=5)
+    smallest_ms = events_ms(lambda: _smallest(tile, n_cand), reps=5)
+    del tile
+    phase("benchmarks", f"bench_nn (defaults: {row['n_points']} points, "
+          f"{row['n_queries']} queries, k {row['k']}): dense "
+          f"{row['device_dense_seconds']} s on the card, {row['tree']} "
+          f"build {row['tree_build_seconds']} s + query "
+          f"{row['tree_query_seconds']} s on the host; the first 64 "
+          f"queries' neighbours equal the CPU's; one chunk's selection of "
+          f"{n_cand} of 1M on 512 rows: _smallest {smallest_ms:.3f} ms, "
+          f"torch.topk alone {topk_ms:.3f} ms (CUDA events) | "
+          f"{seconds['bench_nn']:.1f} s")
+
+    # (d) the Poisson variants' exact residual, at its defaults
+    fid = run("eval_poisson_fidelity", lambda: eval_poisson_fidelity.main([]))
+    vals = [v for r in fid.values() for v in r.values()]
+    if not (np.all(np.isfinite(vals))
+            and fid["bumpy screened (default)"]["mean_mm"] <= 1.0):
+        raise AssertionError(f"eval_poisson_fidelity: {fid}")
+    phase("benchmarks", "eval_poisson_fidelity (defaults: depth 128): "
+          + "; ".join(f"{k} " + ", ".join(f"{n} {v:.3f}"
+                                          for n, v in r.items())
+                      for k, r in fid.items())
+          + f" | {seconds['eval_poisson_fidelity']:.1f} s")
+
+    # (e) the pose-seeded stitch beside its CPU runs, on the lone banana
+    # at 8,192 slots and on the tabletop at the default slots; both arms
+    # at the default slots, timed; then the pose-free diagnosis
+    checked = {}
+    for name, flags, cpu_mm in (("small", STITCH_SMALL, PORT_STITCH_CPU_MM),
+                                ("2f", STITCH_2F, PORT_STITCH_2F_CPU_MM)):
+        got = bench_stitch.main(flags + ["--arms", "pose-seeded"])[
+            "pose-seeded"]
+        if abs(got["chamfer_mm"] / cpu_mm - 1) > 0.10:
+            raise AssertionError(f"bench_stitch {' '.join(flags)}: "
+                                 f"pose-seeded Chamfer {got['chamfer_mm']:.3f}"
+                                 f" mm, the CPU run's {cpu_mm:.3f}")
+        checked[name] = (flags, got, cpu_mm)
+    frames = ["--frames", str(STITCH_FRAMES)]
+    arms = run("bench_stitch", lambda: bench_stitch.main(frames))
+    seeded, free = arms["pose-seeded"], arms["pose-free"]
+    if not all(np.isfinite(a["chamfer_mm"]) and a["points"] > 0
+               for a in arms.values()):
+        raise AssertionError(f"bench_stitch {' '.join(frames)}: {arms}")
+    phase("benchmarks", " | ".join(
+        f"bench_stitch {' '.join(flags)} --arms pose-seeded: Chamfer "
+        f"{got['chamfer_mm']:.3f} mm (its CPU run {cpu_mm:.3f}), "
+        f"{got['seconds']:.1f} s" for flags, got, cpu_mm in checked.values())
+          + f" | bench_stitch {' '.join(frames)} (a reduced depth; default "
+          f"32), 4 arcs, the default slots, timed: pose-seeded Chamfer "
+          f"{seeded['chamfer_mm']:.3f} mm, {seeded['seconds']:.1f} s; "
+          f"pose-free Chamfer {free['chamfer_mm']:.3f} mm, rescued "
+          f"{free.get('rescued')}, dropped {free.get('dropped')} (RANSAC "
+          f"draws torch's stream: held by outcome), {free['seconds']:.1f} "
+          f"s | {seconds['bench_stitch']:.1f} s")
+    diag = run("diag_posefree", lambda: diag_posefree.main(POSEFREE_FRAMES))
+    errs = np.array([[r["rot_deg"], r["trans_mm"]] for r in diag])
+    if (len(diag) != 7 or any(r["arc_jump"] for r in diag)
+            or not (errs[:, 0].max() <= POSEFREE_MAX_DEG
+                    and errs[:, 1].max() <= POSEFREE_MAX_MM)):
+        raise AssertionError(f"diag_posefree: {diag}")
+    phase("benchmarks", f"diag_posefree {' '.join(POSEFREE_FRAMES)} (a "
+          f"reduced depth; default 32 frames of 4 arcs): {len(diag)} "
+          f"registered frames, no arc jump, error rot max "
+          f"{errs[:, 0].max():.2f} deg (<= {POSEFREE_MAX_DEG}), trans max "
+          f"{errs[:, 1].max():.2f} mm (<= {POSEFREE_MAX_MM}) | "
+          f"{seconds['diag_posefree']:.1f} s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (f) the closed loop from a 40-node roadmap, then the coverage
+        # table of its mesh
+        before = kernel_launches()
+        active_mask.launches = 0
+        brick_integrate.launches = 0
+        row, grr, tris = run("bench_grr", lambda: bench_grr.main(
+            n_nodes=40))
+        per_grr = kernel_launches()
+        active_mask.launches = before["active_mask"] + per_grr["active_mask"]
+        brick_integrate.launches = (before["brick_integrate"]
+                                    + per_grr["brick_integrate"])
+        if row["waypoints_solved"] < 490 or min(per_grr.values()) == 0:
+            raise AssertionError(f"bench_grr: {row}, launches {per_grr}")
+        phase("benchmarks", f"bench_grr at 40 roadmap nodes (a reduced "
+              f"depth; default 200), 500 waypoints, 16 pictures, 256^3: "
+              + json.dumps(row) + f" | K2 / K1 launches "
+              f"{json.dumps(per_grr)} | {seconds['bench_grr']:.1f} s")
+        mesh = os.path.join(tmp, "fused_mesh.ply")
+        save_ply(mesh, triangles=tris.cpu().numpy())
+        dist, table = run("eval_scan_coverage",
+                          lambda: eval_scan_coverage.main(["--mesh", mesh]))
+        if not (np.isfinite(dist).all() and len(table["height"]) == 4):
+            raise AssertionError(f"eval_scan_coverage: {table}")
+        phase("benchmarks", f"eval_scan_coverage of bench_grr's mesh "
+              f"(defaults): gt->mesh mean {dist.mean():.3f} mm, by height "
+              + ", ".join(f"{m:.3f}" for m in table["height"])
+              + f" mm | {seconds['eval_scan_coverage']:.1f} s")
+
+        # (g) the roadmap writers on bench_grr's roadmap, into tmp
+        road = os.path.join(tmp, "roadmap")
+        os.makedirs(road)
+        for name in ("workspace", "solver", "resolution"):
+            getattr(grr, f"save_{name}_graph")(
+                os.path.join(road, f"{name}.npz"))
+        n_before = int(grr.solver.has_config.sum())
+        metrics, census = run("expand_coverage", lambda: expand_coverage.main(
+            [road, "--rotation-type", "rot_free", "--out",
+             os.path.join(tmp, "expanded")]))
+        if metrics["n_configured"] < n_before:
+            raise AssertionError(f"expand_coverage: {metrics['n_configured']}"
+                                 f" configured, {n_before} before")
+        phase("benchmarks", f"expand_coverage of bench_grr's roadmap "
+              f"(defaults, rot_free): {n_before} -> "
+              f"{metrics['n_configured']} configured, "
+              f"{int(census['reachable'].sum())} reachable | "
+              f"{seconds['expand_coverage']:.1f} s")
+        metrics = run("refine_roadmap", lambda: refine_roadmap.main(
+            [road, "--rotation-type", "rot_free", "--out",
+             os.path.join(tmp, "refined")]))
+        if metrics["disconnection_ratio"] != 0:
+            raise AssertionError(f"refine_roadmap: {metrics}")
+        phase("benchmarks", f"refine_roadmap of bench_grr's roadmap "
+              f"(defaults, rot_free): {n_before} -> "
+              f"{metrics['n_configured']} configured at 0% disconnection | "
+              f"{seconds['refine_roadmap']:.1f} s")
+
+    # (h) GRR's DTW deficit on the committed rot_variable_yaw roadmap
+    gap = run("dtw_gap", lambda: dtw_gap.main(
+        ["--per-kind", "5", "--kinds", "circle_random"]))["kinds"][
+            "circle_random"]
+    with open(DTW_TABLE) as f:
+        table = json.load(f)["kinds"]["circle_random"]
+    # the 5 trajectories are the first 5 of the table's 25 (generator seed
+    # 7), so a success rate is a multiple of 0.2: one trajectory's
+    # difference. The table's engine loses a host repair a tick (ROADMAP
+    # Queue 3), so it is a yardstick, not a value to equal
+    for arm, got in gap.items():
+        if not (abs(got["success_rate"] - table[arm]["success_rate"])
+                <= 0.2 + 1e-9
+                and got["mean_dtw"] is not None
+                and np.isfinite(got["mean_dtw"])):
+            raise AssertionError(f"dtw_gap {arm}: {got}, the JAX table's "
+                                 f"{table[arm]}")
+    if gap["greedy_seed"]["mean_dtw"] > gap["roadmap_seeds"]["mean_dtw"]:
+        raise AssertionError(f"dtw_gap: the greedy re-seed tracks worse "
+                             f"than the roadmap seeds: {gap}")
+    phase("benchmarks", "dtw_gap at 5 circle_random trajectories (a "
+          "reduced depth; defaults 25 a kind, line_random and "
+          "circle_random): " + "; ".join(
+              f"{arm} success {got['success_rate']:.2f} dtw "
+              f"{got['mean_dtw']:.4f} (JAX table at 25: "
+              f"{table[arm]['success_rate']:.2f}, "
+              f"{table[arm]['mean_dtw']:.4f})"
+              for arm, got in gap.items())
+          + f" | {seconds['dtw_gap']:.1f} s")
+    total = kernel_launches()
+    phase("benchmarks", f"phase 18 {time.perf_counter() - t_phase:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return total, per_fusion, per_grr
 
 
 def main():
@@ -1828,6 +2118,11 @@ def main():
     k3_parallel = parallel_phase(card, frames)
     launches["brick_integrate_fixed"] += k3_parallel
 
+    # --- 18. the measurement tools ---------------------------------------
+    in_tools, per_fusion, per_grr = benchmarks_phase(card)
+    for name, count in in_tools.items():
+        launches[name] += count
+
     for arm, count in {**ablate_launches, **probe_launches}.items():
         if count == 0:
             raise AssertionError(f"its tool never launched arm {arm}")
@@ -1839,7 +2134,9 @@ def main():
     phase("launches", json.dumps(launches) + " | one bench batch "
           + json.dumps(per_batch) + " | one banana orbit "
           + json.dumps(per_orbit) + " | one planned scan "
-          + json.dumps(per_scan))
+          + json.dumps(per_scan) + " | one bench_fusion run "
+          + json.dumps(per_fusion) + " | one bench_grr run "
+          + json.dumps(per_grr))
 
     def entry(name, source, replaces, nums, **extra):
         """One kernel's line: its device time as ``ms``."""
@@ -1869,6 +2166,8 @@ def main():
               launches_per_batch=per_batch["active_mask"],
               launches_per_orbit=per_orbit["active_mask"],
               launches_per_scan=per_scan["active_mask"],
+              launches_per_bench_fusion=per_fusion["active_mask"],
+              launches_per_bench_grr=per_grr["active_mask"],
               graph_floor_ms=k2["graph_floor_ms"]),
         entry("brick_integrate", "brick_integrate.cu",
               "reconplan_tpu/ops/tsdf_brick.py:682", k1,
@@ -1876,6 +2175,8 @@ def main():
               launches_per_batch=per_batch["brick_integrate"],
               launches_per_orbit=per_orbit["brick_integrate"],
               launches_per_scan=per_scan["brick_integrate"],
+              launches_per_bench_fusion=per_fusion["brick_integrate"],
+              launches_per_bench_grr=per_grr["brick_integrate"],
               live_bricks=k1["live_bricks"],
               brick_frames=k1["brick_frames"],
               vs_old_design=k1["vs_old_design"],

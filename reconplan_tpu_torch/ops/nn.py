@@ -79,10 +79,40 @@ def se3_pairwise(points1, points2, position_weight=1.0, rotation_weight=0.3):
 
 def _smallest(d, n):
     """Column indices of the ``n`` smallest entries of each row of ``d``,
-    ascending, equal values in index order (``lax.top_k``'s order)."""
-    idx = torch.topk(d, n, dim=1, largest=False).indices.sort(dim=1).values
+    ascending by (value, index): ``lax.top_k``'s order, also where equal
+    values straddle the ``n``-th place, where ``torch.topk`` may pick any
+    of them.
+
+    ``topk`` takes the ``n + 1`` smallest: a row whose ``n + 1``-th value
+    equals its ``n``-th has such a tie and is redone by
+    :func:`_tie_filled`. The other rows (nearly all of a distance
+    matrix's) cost what ``topk`` costs, and one flag read back to the
+    host says whether any row is tied."""
+    m = min(n + 1, d.shape[1])
+    vals, idx = torch.topk(d, m, dim=1, largest=False)
+    v = vals[:, n - 1:n]
+    idx = idx[:, :n].sort(dim=1).values
+    if m > n:
+        tied = vals[:, n] == v[:, 0]
+        if bool(tied.any()):
+            rows = tied.nonzero()[:, 0]
+            idx[rows] = _tie_filled(d[rows], v[rows], n)
     order = torch.sort(torch.gather(d, 1, idx), dim=1, stable=True).indices
     return torch.gather(idx, 1, order)
+
+
+def _tie_filled(d, v, n):
+    """The columns, in index order, of every entry of each row of ``d``
+    below its ``v`` and of the lowest-index entries equal to ``v`` up to
+    ``n`` in all: the equal ones by a running count of the equal mask, the
+    kept ones found by a search of the kept mask's running count."""
+    less = d < v
+    eq = d == v
+    need = n - less.sum(dim=1, keepdim=True, dtype=torch.int32)
+    keep = less | (eq & (torch.cumsum(eq, 1, dtype=torch.int32) <= need))
+    ranks = torch.arange(1, n + 1, dtype=torch.int32, device=d.device)
+    return torch.searchsorted(torch.cumsum(keep, 1, dtype=torch.int32),
+                              ranks.expand(d.shape[0], n).contiguous())
 
 
 def _knn_chunked(queries, points, k, valid, row_chunk, metric, exact):

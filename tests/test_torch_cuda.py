@@ -1257,3 +1257,43 @@ def test_run_scan_defaults_on_the_card(card, tmp_path):
                 "stitch_chamfer_mm"):
         assert 0 < out[key] < 20, key
     assert out["best_mesh"] == out["close_gate"]["best"]
+
+
+def test_smallest_ties_on_the_card_equal_the_cpu(card):
+    """``ops.nn._smallest`` picks ties by (value, index) on the card as on
+    the CPU (where ``tests/test_torch_nn_ties.py`` holds it against
+    ``lax.top_k``): all-zero, ``inf``-padded and integer rows, and one
+    row as wide as ``bench_nn``'s point set."""
+    from reconplan_tpu_torch.ops.nn import _smallest
+
+    rng = np.random.default_rng(0)
+    rows = [np.zeros((4, 8), np.float32),
+            np.array([[np.inf] * 40 + [0.5] * 2], np.float32),
+            rng.integers(0, 4, (64, 5000)).astype(np.float32),
+            rng.integers(0, 3, (2, 1_000_000)).astype(np.float32),
+            rng.normal(size=(64, 5000)).astype(np.float32)]
+    for d in rows:
+        for k in (1, 4, 8):
+            a = _smallest(torch.as_tensor(d, device=card), k).cpu()
+            b = _smallest(torch.as_tensor(d), k)
+            assert torch.equal(a, b), (d.shape, k)
+    assert _smallest(torch.as_tensor(rows[1], device=card),
+                     4).tolist() == [[40, 41, 0, 1]]
+
+
+def test_posefree_registration_within_one_arc_on_the_card(card):
+    """``benchmarks.diag_posefree`` at 8 frames of one arc (steps of 19-41
+    degrees) and the default 65,536 / 16,384 slots: every frame
+    registers, each pose error within 5 deg and 25 mm (measured on the
+    card: at most 0.94 deg and 5.14 mm). On a CPU these slots take
+    minutes a frame, so the CPU tests hold the error arithmetic exactly
+    and the registration by outcome at smaller slots."""
+    from reconplan_tpu_torch.benchmarks import diag_posefree
+
+    rows = diag_posefree.main(["--frames", "8", "--arcs", "1",
+                               "--device", str(card)])
+    assert [r["frame"] for r in rows] == list(range(1, 8))
+    assert not any(r["arc_jump"] for r in rows)
+    assert max(r["rot_deg"] for r in rows) <= 5.0
+    assert max(r["trans_mm"] for r in rows) <= 25.0
+    assert min(r["fit"] for r in rows) > 0.5

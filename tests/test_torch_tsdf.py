@@ -246,6 +246,38 @@ def _reference_benchmark(**kw):
         **kw)
 
 
+def _tool(name, *argv, roadmap=False):
+    """``reconplan_tpu_torch.benchmarks.<name>.main`` at a tiny size: as
+    keywords where ``argv`` is one dict, else as flags (``--device`` from
+    the call's keywords). ``roadmap``: the flags lead with a 4-node
+    rot_free roadmap's folder and ``--out`` beside it, both temporary."""
+    import importlib
+
+    main = importlib.import_module(
+        f"reconplan_tpu_torch.benchmarks.{name}").main
+
+    def call(**kw):
+        if argv and isinstance(argv[0], dict):
+            return main(**argv[0], **kw)
+        flags = [*argv, *(["--device", str(kw["device"])] if kw else [])]
+        if not roadmap:
+            return main(flags)
+        with tempfile.TemporaryDirectory() as d:
+            tredundancy.build_roadmap("ur10", "rot_free", n_pos_points=4,
+                                      seeds="json", out_dir=d, verbose=False,
+                                      device="cpu")
+            return main([d, "--rotation-type", "rot_free", "--out",
+                         os.path.join(d, "out"), *flags])
+
+    return call
+
+
+def _cpu_if(ok):
+    """For a tool whose result names no tensor: the CPU call only has to
+    run (``ok``: it gave what the flags asked for)."""
+    return ok and torch.device("cpu")
+
+
 def _serve_teleop(**kw):
     """The teleop server on a port the system picks, shut at once; its
     session's resolution tells the device."""
@@ -406,6 +438,41 @@ ENTRY_POINTS = {
         lambda out: out == ({}, {}) and torch.device("cpu")),
     "serve_teleop": (_serve_teleop,
                      lambda srv: srv.session.resolution.device),
+    # the measurement tools' main
+    "bench_fusion": (_tool("bench_fusion", dict(n_frames=1, dims=(16,))),
+                     lambda rows: torch.device(rows[0]["device"])),
+    "bench_grr": (_tool("bench_grr", dict(n_nodes=8, n_waypoints=2,
+                                          n_images=1, grid_dim=16)),
+                  lambda out: out[1].configs_t.device),
+    "bench_poisson": (_tool("bench_poisson", dict(n_points=500, depth=8)),
+                      lambda row: torch.device(row["device"])),
+    "bench_nn": (_tool("bench_nn", dict(n_points=200, n_queries=8)),
+                 lambda out: out[2].device),
+    "bench_stitch": (
+        _tool("bench_stitch", "--frames", "1", "--arcs", "1", "--arms",
+              "pose-seeded", "--no-floor", "--capacity", "2048",
+              "--frame-capacity", "1024"),
+        lambda arms: _cpu_if(list(arms) == ["pose-seeded"])),
+    "diag_posefree": (
+        _tool("diag_posefree", "--frames", "2", "--arcs", "1",
+              "--capacity", "1024", "--frame-capacity", "512"),
+        lambda rows: _cpu_if(len(rows) == 1)),
+    "eval_poisson_fidelity": (
+        _tool("eval_poisson_fidelity", "--depth", "8"),
+        lambda out: _cpu_if(len(out) == 5)),
+    "eval_scan_coverage": (
+        _tool("eval_scan_coverage", "--mesh", tscan.BANANA_MESH,
+              "--samples", "500"),
+        _numpy_out),
+    "dtw_gap": (_tool("dtw_gap", "--kinds", ""),
+                lambda out: torch.device(out["device"])),
+    "expand_coverage": (
+        _tool("expand_coverage", "--rounds", "0", "--restarts", "0",
+              "--smooth-iters", "0", roadmap=True),
+        lambda out: _cpu_if(out[0]["n_nodes"] == 4)),
+    "refine_roadmap": (
+        _tool("refine_roadmap", "--no-smooth", roadmap=True),
+        lambda metrics: _cpu_if(metrics["n_nodes"] == 4)),
 }
 
 
