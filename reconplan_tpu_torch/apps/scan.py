@@ -39,6 +39,7 @@ from reconplan_tpu_torch.recon.fusion import FusionPipeline
 from reconplan_tpu_torch.recon.metrics import chamfer_to_mesh
 from reconplan_tpu_torch.recon.stitcher import PinholeIntrinsic, RGBDStitcher
 from reconplan_tpu_torch.utils.device import resolve_device
+from reconplan_tpu_torch.utils.profiling import spanned, to_host
 
 OBJECT_POINT = [0.75, 0.75, 0.0]  # main.py:45
 BANANA_MESH = os.path.join(
@@ -53,6 +54,7 @@ D435 = dict(fx=615.6707153320312, fy=615.962158203125,
 FALLBACK_RESTARTS = 16
 
 
+@spanned("scan.grr_plan")
 def grr_plan(grr, workspace_path, track_array=None, batched=True,
              ik_fallback=True, stats=None):
     """GRR solve threading curr_config (``main.py:257-307``).
@@ -99,8 +101,8 @@ def grr_plan(grr, workspace_path, track_array=None, batched=True,
             qf, okf = robot.solve_ik_batch(
                 np.repeat(pts[:, :3], R, axis=0), seeds
             )
-            qf = qf.cpu().numpy().reshape(B, R, -1)
-            okf = okf.cpu().numpy().reshape(B, R)
+            qf = to_host(qf).numpy().reshape(B, R, -1)
+            okf = to_host(okf).numpy().reshape(B, R)
             n_rescued = 0
             for j, i in enumerate(bad):
                 hit = np.flatnonzero(okf[j])
@@ -161,7 +163,7 @@ def make_arc_schedule(n_arcs, per_arc, base_az=3 * np.pi / 4, device=None):
 
 def _numpy(a, dtype=None):
     """A numpy copy of an array or of a tensor on any device."""
-    a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
+    a = to_host(a.detach()).numpy() if isinstance(a, torch.Tensor) else a
     return np.asarray(a, dtype=dtype)
 
 
@@ -383,7 +385,7 @@ def run_scan(
     from reconplan_tpu_torch.kin.robot import make_robot
     from reconplan_tpu_torch.utils.profiling import StageTimer
 
-    timer = StageTimer()
+    timer = StageTimer("scan.")
 
     if rotation_type is None:
         # infer the GRR problem from the roadmap path so shipped variants
@@ -442,7 +444,7 @@ def run_scan(
     if not valid:
         raise RuntimeError("no valid configurations solved")
     qs = robot._tensor(np.asarray(valid, dtype=np.float32))
-    ee = robot.fk_point_batch(qs).cpu().numpy()
+    ee = to_host(robot.fk_point_batch(qs)).numpy()
     with open(os.path.join(out_dir, "wtraj.txt"), "w") as f:
         for t, p in zip(times, ee):
             f.write(f"{t},[array({list(p[:3])}), array({list(p[3:7])})]\n")
@@ -453,7 +455,7 @@ def run_scan(
     # camera positions: one batched FK of the d435 color frame along the
     # trajectory
     _, t_links = fk_all(robot.model, robot._full_config(qs))
-    cam_positions = t_links[:, robot.camera_link].cpu().numpy()
+    cam_positions = to_host(t_links[:, robot.camera_link]).numpy()
     pick = np.linspace(0, len(qs) - 1, n_images).astype(int)
     depths, colors, poses = [], [], []
     with timer.stage("capture", fence=device):

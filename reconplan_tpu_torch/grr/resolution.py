@@ -47,6 +47,7 @@ from reconplan_tpu_torch.kin.ik import dls_ik_batch
 from reconplan_tpu_torch.ops.nn import _smallest, se3_pairwise
 from reconplan_tpu_torch.utils.device import robot_device
 from reconplan_tpu_torch.utils.native import GraphCore
+from reconplan_tpu_torch.utils.profiling import count, span, spanned, to_host
 
 
 class RedundancyResolution:
@@ -173,6 +174,7 @@ class RedundancyResolution:
     # ------------------------------------------------------------------
     # the runtime query (resolution.py:232-433)
     # ------------------------------------------------------------------
+    @spanned("grr.solve")
     def solve(
         self,
         point,
@@ -215,18 +217,18 @@ class RedundancyResolution:
         if curr_config is not None:
             # tracking mode: joint-space closest neighbor as IK seed
             # (resolution.py:299-330)
-            dists = self.robot.distance_batch(
+            dists = to_host(self.robot.distance_batch(
                 self.robot._tensor(curr_config)[None],
                 self.configs_t[neighbors],
-            ).cpu().numpy()
+            )).numpy()
             TrackArray.append(float(dists.min()))
             return solve_with_guess(self.configs[neighbors[int(dists.argmin())]])
 
         # cold start: exact node match (resolution.py:313-318), the
         # distances to all neighbours read back at once
         p32 = point.astype(np.float32)
-        d_exact = maths.se3_distance(
-            self.robot._tensor(p32), self.points_t[neighbors]).cpu().numpy()
+        d_exact = to_host(maths.se3_distance(
+            self.robot._tensor(p32), self.points_t[neighbors])).numpy()
         for n, dn in zip(neighbors, d_exact):
             if dn < 1e-3:
                 TrackArray.append(0)
@@ -237,8 +239,8 @@ class RedundancyResolution:
         component = self._component_containing(neighbors, neighbors[0])
         comp = sorted(component)
         q_nbrs = self.configs[comp]
-        d = maths.se3_distance(self.robot._tensor(p32)[None],
-                               self.points_t[comp]).cpu().numpy()
+        d = to_host(maths.se3_distance(self.robot._tensor(p32)[None],
+                                       self.points_t[comp])).numpy()
         graph_d = self._graph_distances(neighbors[0], comp)
         max_d = d.max()
         workspace_w = (max_d / np.maximum(d, 1e-12)) ** 2
@@ -251,6 +253,7 @@ class RedundancyResolution:
         TrackArray.append(2)
         return solve_with_guess(q_avg)
 
+    @spanned("grr.seeds")
     def _seeds(self, point, curr, k, j):
         """The roadmap seeds of one ``solve_batch`` step: the ``k`` SE3
         nearest roadmap nodes of ``point`` (1, D), then the ``j`` of them
@@ -262,6 +265,7 @@ class RedundancyResolution:
         jd = self.robot.distance_batch(curr[None, :], self.configs_t[idx])
         return idx[_smallest(jd[None], j)[0]], jd
 
+    @spanned("grr.solve_batch")
     def solve_batch(self, points, init_config=None, max_iters=100,
                     tolerance=1e-3, return_track=False, n_seeds=8):
         """Solve a whole Cartesian path on the device.
@@ -318,21 +322,23 @@ class RedundancyResolution:
                 max_iters=max_iters, tolerance=tolerance,
                 use_rotation=use_rot,
             )
-            q = torch.where(robot._cyclic_mask, maths.wrap_to_pi(res.config),
-                            res.config)
-            okj = res.success & robot._validate_batch(q)
-            # among converged+valid restarts, prefer minimal joint motion
-            dq = torch.where(okj, robot.distance_batch(curr[None, :], q),
-                             torch.inf)
-            best = torch.argmin(dq)
-            q, ok = q[best], okj[best]
-            curr = torch.where(ok, q, curr)
-            qs.append(q)
-            oks.append(ok)
-            track.append(jd.min())
-        out = (torch.stack(qs).cpu().numpy(), torch.stack(oks).cpu().numpy())
+            with span("grr.select"):
+                q = torch.where(robot._cyclic_mask,
+                                maths.wrap_to_pi(res.config), res.config)
+                okj = res.success & robot._validate_batch(q)
+                # among converged+valid restarts, prefer minimal joint motion
+                dq = torch.where(okj, robot.distance_batch(curr[None, :], q),
+                                 torch.inf)
+                best = torch.argmin(dq)
+                q, ok = q[best], okj[best]
+                curr = torch.where(ok, q, curr)
+                qs.append(q)
+                oks.append(ok)
+                track.append(jd.min())
+        out = (to_host(torch.stack(qs)).numpy(),
+               to_host(torch.stack(oks)).numpy())
         if return_track:
-            return out + (torch.stack(track).cpu().numpy(),)
+            return out + (to_host(torch.stack(track)).numpy(),)
         return out
 
     def _component_containing(self, nodes, target):
@@ -377,8 +383,10 @@ class RedundancyResolution:
     # ------------------------------------------------------------------
     # teleop (resolution.py:145-228)
     # ------------------------------------------------------------------
+    @spanned("teleop.solve")
     def teleop_solve(self, target_point, curr_config, max_change=0.03):
-        pos, rot = self.robot.solve_fk(np.asarray(curr_config), index=-1)
+        with span("teleop.fk"):
+            pos, rot = self.robot.solve_fk(np.asarray(curr_config), index=-1)
         curr_point = pos
         if self.robot.rotation == "variable":
             curr_point = np.concatenate([pos, rot])
@@ -412,16 +420,19 @@ class RedundancyResolution:
             return curr_config
 
         # discontinuity fallback: nearest roadmap nodes (resolution.py:197-213)
-        neighbors = self.workspace.get_workspace_neighbors(
-            np.asarray(target_point, dtype=np.float32), k=5, points=self.points_t
-        )
-        for n in neighbors.tolist():
-            qn = self.configs[n]
-            pn = self.points[n]
-            if self.solver.is_continuous(qn, curr_config, pn, curr_point):
-                return self.teleop_towards(curr_config, qn, max_change)
-        return None
+        count("teleop.fallbacks")
+        with span("teleop.fallback"):
+            neighbors = self.workspace.get_workspace_neighbors(
+                np.asarray(target_point, dtype=np.float32), k=5,
+                points=self.points_t)
+            for n in neighbors.tolist():
+                qn = self.configs[n]
+                pn = self.points[n]
+                if self.solver.is_continuous(qn, curr_config, pn, curr_point):
+                    return self.teleop_towards(curr_config, qn, max_change)
+            return None
 
+    @spanned("teleop.towards")
     def teleop_towards(self, curr_config, target_config, max_change):
         """Clamped step toward a target config (resolution.py:215-228)."""
         diff = np.asarray(target_config) - np.asarray(curr_config)
@@ -464,9 +475,11 @@ class RedundancyResolution:
             path.append(prev[path[-1]])
         return path[::-1]
 
+    @spanned("grr.plan")
     def plan(self, start_point, goal_point, interpolation=8):
         """Roadmap path + per-segment interpolation re-solve
         (resolution.py:435-517)."""
+        count("grr.plans")
         start_point = np.asarray(start_point, dtype=np.float32)
         goal_point = np.asarray(goal_point, dtype=np.float32)
 

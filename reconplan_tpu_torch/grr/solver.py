@@ -35,6 +35,7 @@ from reconplan_tpu_torch.core import maths
 from reconplan_tpu_torch.kin.ik import dls_ik_batch
 from reconplan_tpu_torch.utils.device import robot_device
 from reconplan_tpu_torch.utils.native import GraphCore
+from reconplan_tpu_torch.utils.profiling import count, spanned, to_host
 
 _MAX_BISECT_DEPTH = 6  # up to 64 segments per edge
 
@@ -68,8 +69,8 @@ class ExpansionSolver:
 
     def _distance(self, q1, q2):
         """``robot.distance_batch`` of numpy configs, read back as numpy."""
-        return self.robot.distance_batch(
-            self._tensor(q1), self._tensor(q2)).cpu().numpy()
+        return to_host(self.robot.distance_batch(
+            self._tensor(q1), self._tensor(q2))).numpy()
 
     # ------------------------------------------------------------------
     # batched primitives
@@ -94,8 +95,8 @@ class ExpansionSolver:
         q = torch.where(robot._cyclic_mask, maths.wrap_to_pi(res.config),
                         res.config)
         valid = robot._validate_batch(q)
-        return (q.cpu().numpy(), res.success.cpu().numpy(),
-                valid.cpu().numpy())
+        return (to_host(q).numpy(), to_host(res.success).numpy(),
+                to_host(valid).numpy())
 
     def project_neighbors_batch(self, nodes, k_layers=4):
         """Batched ``project_neighbors`` (``solver.py:227-259``): for each
@@ -126,13 +127,13 @@ class ExpansionSolver:
         nbr_pts = ws.points[nbr_idx]  # (B, K, D)
         nbr_cfg = self.configs[nbr_idx]  # (B, K, A)
 
-        seeds = _weighted_average_batch(
+        seeds = to_host(_weighted_average_batch(
             self._tensor(pts),
             self._tensor(nbr_pts),
             self._tensor(nbr_cfg),
             torch.as_tensor(nbr_mask, device=self.device),
             self.robot._cyclic_mask,
-        ).cpu().numpy()
+        )).numpy()
         # Multi-seed restarts (documented divergence from the reference's
         # single average-seed projection, solver.py:227-259): near the
         # reach boundary IK from the averaged config alone strands ~1/3 of
@@ -187,6 +188,7 @@ class ExpansionSolver:
     # ------------------------------------------------------------------
     # continuity (solver.py:304-363)
     # ------------------------------------------------------------------
+    @spanned("grr.continuity")
     def is_continuous_batch(self, q1, q2, p1, p2):
         """Vectorized bisection continuity check for B (config, point)
         pairs. Returns (B,) bool. Each level solves the midpoints of the
@@ -203,6 +205,7 @@ class ExpansionSolver:
             p1 = p1[:, :d_min]
             p2 = p2[:, :d_min]
         B = len(q1)
+        count("grr.continuity_checks", B)
 
         eps = np.sqrt(A) * 5e-2  # solver.py:318
         deviation = 1.8  # solver.py:317
@@ -236,9 +239,9 @@ class ExpansionSolver:
             qa = Q[act][:, mids - stride]  # (b, n_mid, A)
             qb = Q[act][:, mids + stride]
             # midpoint seeds: config interpolation (cyclic-aware)
-            seeds = _interp_config_batch(
+            seeds = to_host(_interp_config_batch(
                 self._tensor(qa), self._tensor(qb), 0.5,
-                self.robot._cyclic_mask).cpu().numpy()
+                self.robot._cyclic_mask)).numpy()
             # midpoint workspace targets: pos lerp + quat slerp
             idx = torch.as_tensor(act, device=self.device)
             targets = _interp_point_batch(
@@ -297,7 +300,7 @@ class ExpansionSolver:
             if verbose:
                 print("Valid start configurations: 0/0 (no seeds)")
             return set()
-        points = self.robot.fk_point_batch(seeds).cpu().numpy()
+        points = to_host(self.robot.fk_point_batch(seeds)).numpy()
         if ws.points.shape[1] == 3:
             points = points[:, :3]
         start_nodes = ws.get_workspace_neighbors(points, k=1)[:, 0]
@@ -630,13 +633,13 @@ class ExpansionSolver:
                 for b, s in enumerate(nbr_sets):
                     nbr_idx[b, : len(s)] = s
                     nbr_mask[b, : len(s)] = True
-                seeds = _weighted_average_batch(
+                seeds = to_host(_weighted_average_batch(
                     self._tensor(ws.points[nodes]),
                     self._tensor(ws.points[nbr_idx]),
                     self._tensor(self.configs[nbr_idx]),
                     torch.as_tensor(nbr_mask, device=self.device),
                     self.robot._cyclic_mask,
-                ).cpu().numpy()
+                )).numpy()
                 q_new, conv, valid = self._ik_batch(
                     ws.points[nodes], seeds
                 )

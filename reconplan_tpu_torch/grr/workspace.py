@@ -23,6 +23,7 @@ from reconplan_tpu_torch.io.checkpoint import (
 )
 from reconplan_tpu_torch.ops.nn import se3_knn
 from reconplan_tpu_torch.utils.device import robot_device
+from reconplan_tpu_torch.utils.profiling import to_host
 
 
 class RoadmapWorkspace:
@@ -93,8 +94,8 @@ class RoadmapWorkspace:
         y = obj[1] - 0.15 * np.cos(np.pi / 4) + circ_rad * np.cos(t) * np.sin(3 * np.pi / 4)
         z = circ_height + obj[2] + circ_rad * np.sin(t)
         eyes = np.stack([x, y, z], axis=-1).astype(np.float32)
-        quats = maths.look_at_quat(self._tensor(eyes),
-                                   self._tensor(obj)).cpu().numpy()
+        quats = to_host(maths.look_at_quat(self._tensor(eyes),
+                                           self._tensor(obj))).numpy()
         self.points = np.concatenate([eyes, quats], axis=-1).astype(np.float32)
 
         # connect: k = n_rot_points * 3 - 1 (= 2), via SE3 top-k
@@ -122,10 +123,10 @@ class RoadmapWorkspace:
             edges = pos_edges
         else:
             if self.robot.fixed_rotation is not None:
-                fixed_euler = maths.quat_to_euler(
+                fixed_euler = to_host(maths.quat_to_euler(
                     self._tensor(self.robot.fixed_rotation),
                     seq=maths.PROBLEM_EULER_SEQ,
-                ).cpu().numpy()
+                )).numpy()
             else:
                 fixed_euler = np.zeros(3)
             rot_points, rot_edges = grids.get_so3_grid(
@@ -158,7 +159,7 @@ class RoadmapWorkspace:
     def _connect_knn(self, k):
         pts = self._points_device()
         _, idx = se3_knn(pts, pts, k + 1)
-        idx = idx.cpu().numpy()
+        idx = to_host(idx).numpy()
         i = np.repeat(np.arange(len(idx)), idx.shape[1])
         j = idx.reshape(-1)
         keep = i != j
@@ -178,7 +179,7 @@ class RoadmapWorkspace:
                 self._tensor(self.points[edges[:, 0]]),
                 self._tensor(self.points[edges[:, 1]]),
             )
-            self.edge_weights = w.cpu().numpy().astype(np.float32)
+            self.edge_weights = to_host(w).numpy().astype(np.float32)
         else:
             self.edge_weights = np.zeros((0,), dtype=np.float32)
         adj = [[] for _ in range(self.num_nodes)]
@@ -213,7 +214,7 @@ class RoadmapWorkspace:
             q = q[:, :3]
         k = min(k or 1, target.shape[0])
         _, idx = se3_knn(q, target, k)
-        idx = idx.cpu().numpy()
+        idx = to_host(idx).numpy()
         return idx[0] if single else idx
 
     # ------------------------------------------------------------------

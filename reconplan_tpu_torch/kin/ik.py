@@ -43,6 +43,7 @@ from reconplan_tpu_torch.kin.chain import (
     fk_all,
     jacobian_from_fk,
 )
+from reconplan_tpu_torch.utils.profiling import count, spanned, to_host
 
 
 # iterations between two looks at whether any lane is still active
@@ -63,6 +64,7 @@ def _rotation_error(R_target, R_current):
     return maths.quat_to_rotvec(maths.matrix_to_quat(R_err))
 
 
+@spanned("ik.solve")
 def dls_ik_batch(
     model: KinematicModel,
     active: tuple,
@@ -105,6 +107,7 @@ def dls_ik_batch(
 
     Returns: IKResult of (B, ...) tensors on the inputs' device.
     """
+    count("ik.calls")
     dev = init_config.device
     B = init_config.shape[0]
     err_dim = 6 if use_rotation else 3
@@ -126,8 +129,10 @@ def dls_ik_batch(
                         target_rot, q_rest, max_iters, tolerance, err_dim)
         state = step.start(init_config, lam, iters)
         for it in range(max_iters):
-            if it % CHECK_EVERY == 0 and not bool(step.live(state).any()):
-                break
+            if it % CHECK_EVERY == 0:
+                if not bool(to_host(step.live(state).any())):
+                    break
+                count("ik.chunks")
             state = step(state)
         q, e, _R, _t, err_norm, _lam, iters = state
 
@@ -242,12 +247,13 @@ class _ChunkGraph:
         for dst, src in zip(self.state, self.step.start(q, lam, iters)):
             dst.copy_(src)
         for _ in range(self.step.max_iters // CHECK_EVERY):
-            if not bool(self.step.live(self.state).any()):
+            if not bool(to_host(self.step.live(self.state).any())):
                 break
+            count("ik.chunks")
             self.graph.replay()
         state = self.state
         for _ in range(self.step.max_iters % CHECK_EVERY):
-            if not bool(self.step.live(state).any()):
+            if not bool(to_host(self.step.live(state).any())):
                 break
             state = self.step(state)
         q, e, _R, _t, err_norm, _lam, iters = state
@@ -268,6 +274,7 @@ def _chunk_graph(model, active, ee_link, n, use_rotation, max_iters,
            tolerance, id(q_rest), str(dev))
     graph = _graphs.pop(key, None)
     if graph is None:
+        count("ik.graph_captures")
         graph = _ChunkGraph(model, active, ee_link, n, use_rotation,
                             max_iters, tolerance, q_rest, dev)
         graph.q_rest = q_rest

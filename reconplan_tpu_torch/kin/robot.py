@@ -40,6 +40,7 @@ from reconplan_tpu_torch.kin.chain import _index, fk_all, model_from_rob
 from reconplan_tpu_torch.kin.ik import dls_ik_batch
 from reconplan_tpu_torch.kin.rob_parser import load_off_vertices, parse_rob
 from reconplan_tpu_torch.utils.device import resolve_device
+from reconplan_tpu_torch.utils.profiling import to_host
 
 _DEFAULT_DATA_DIRS = (
     os.path.join(
@@ -153,7 +154,7 @@ class Robot:
 
     @staticmethod
     def _numpy(t):
-        return t.detach().cpu().numpy()
+        return to_host(t.detach()).numpy()
 
     # ------------------------------------------------------------------
     # geometry setup
@@ -303,7 +304,7 @@ class Robot:
 
     def distance(self, q1, q2):
         """Config distance with cyclic wrap."""
-        return float(torch.linalg.norm(self._config_diff(q1, q2)))
+        return float(to_host(torch.linalg.norm(self._config_diff(q1, q2))))
 
     def distance_batch(self, q1, q2):
         """(..., A) vs (..., A) -> (...,) distances on device."""
@@ -432,7 +433,7 @@ class Robot:
             max_iters=max_iters,
             tolerance=tolerance,
         )
-        if none_on_fail and not bool(ok[0]):
+        if none_on_fail and not bool(to_host(ok[0])):
             return None
         return self._numpy(q[0])
 
@@ -478,7 +479,7 @@ class Robot:
         """True when the arm links collide with the end-effector group."""
         if self._spheres is None:
             return False
-        return bool(self._self_collision_device(self._tensor(q)))
+        return bool(to_host(self._self_collision_device(self._tensor(q))))
 
 
 class KinematicChain(Robot):

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from reconplan_tpu_torch.utils.profiling import to_host
+
 
 def pairwise_sqdist(x, y, precision=None, center=True):
     """Squared euclidean distances (..., N, D) x (..., M, D) -> (..., N, M);
@@ -94,7 +96,7 @@ def _smallest(d, n):
     idx = idx[:, :n].sort(dim=1).values
     if m > n:
         tied = vals[:, n] == v[:, 0]
-        if bool(tied.any()):
+        if bool(to_host(tied.any())):
             rows = tied.nonzero()[:, 0]
             idx[rows] = _tie_filled(d[rows], v[rows], n)
     order = torch.sort(torch.gather(d, 1, idx), dim=1, stable=True).indices

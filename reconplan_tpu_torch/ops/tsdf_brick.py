@@ -38,6 +38,12 @@ from reconplan_tpu_torch.ops.kernels.brick_integrate_fixed import (
     brick_integrate_fixed,
 )
 from reconplan_tpu_torch.utils.device import resolve_device, scalar_tensor
+from reconplan_tpu_torch.utils.profiling import (
+    count,
+    span,
+    spanned,
+    to_host,
+)
 
 class BrickGrid(NamedTuple):
     """Bricked TSDF volume. Logical voxel (z, y, x) lives at brick
@@ -334,6 +340,7 @@ def compact_ids(mask, size, fill):
     return torch.where(slot < mask.sum(), ids, fill).to(torch.int32)
 
 
+@spanned("tsdf.active_set")
 def chunk_active_set(d_chunk, T_chunk, intr, origin, brick_dims, voxel_size,
                      trunc, max_active, nb_scratch, depth_scale=1000.0,
                      depth_max=3.0, dilate_active=False):
@@ -352,15 +359,18 @@ def chunk_active_set(d_chunk, T_chunk, intr, origin, brick_dims, voxel_size,
     all_frames = (1 << F_chunk) - 1
     occ_cell = _occupancy_cell(Hd, Wd)
     if occ_cell is not None:
-        occ0, occ1, binp = _build_depth_occupancy(
-            d_chunk, depth_scale, depth_max, occ_cell)
-        # K2: conservative per-frame occupancy superset
-        bits = active_mask(
-            brick_dims, origin, voxel_size, trunc, occ0, occ1, binp,
-            T_chunk, *intr, mip_cell=occ_cell)
-        bits = refine_frame_bits(bits, d_chunk, T_chunk, intr, origin,
-                                 brick_dims, voxel_size, trunc, max_active,
-                                 depth_scale, depth_max)
+        with span("tsdf.occupancy"):
+            occ0, occ1, binp = _build_depth_occupancy(
+                d_chunk, depth_scale, depth_max, occ_cell)
+        with span("tsdf.k2"):
+            # K2: conservative per-frame occupancy superset
+            bits = active_mask(
+                brick_dims, origin, voxel_size, trunc, occ0, occ1, binp,
+                T_chunk, *intr, mip_cell=occ_cell)
+        with span("tsdf.refine"):
+            bits = refine_frame_bits(
+                bits, d_chunk, T_chunk, intr, origin, brick_dims, voxel_size,
+                trunc, max_active, depth_scale, depth_max)
         if dilate_active:
             # dilated-in bricks integrate all frames (conservative)
             mask = _dilate((bits != 0).reshape(bd, bh, bw)).reshape(-1)
@@ -372,7 +382,8 @@ def chunk_active_set(d_chunk, T_chunk, intr, origin, brick_dims, voxel_size,
             brick_dims, origin, voxel_size, trunc, d_chunk, T_chunk,
             *intr, depth_scale, depth_max).reshape(bd, bh, bw)).reshape(-1)
         bits = torch.where(mask, all_frames, 0).to(torch.int32)
-    return compact_active(bits, max_active, nb_scratch)
+    with span("tsdf.compact"):
+        return compact_active(bits, max_active, nb_scratch)
 
 
 def refine_frame_bits(bits, d_chunk, T_chunk, intr, origin, brick_dims,
@@ -415,23 +426,27 @@ def _integrate_device_all(
     T_w2c_all = torch.linalg.inv(poses)
     n_active = torch.zeros((), dtype=torch.int32, device=depths.device)
     for f0 in range(0, depths.shape[0], frames_per_dispatch):
-        chunk = slice(f0, f0 + frames_per_dispatch)
-        d_chunk = depths[chunk]
-        T_chunk = T_w2c_all[chunk].contiguous()
-        ids, fbits, n_chunk, n_mask = chunk_active_set(
-            d_chunk, T_chunk, intr, origin, brick_dims, voxel_size, trunc,
-            max_active, sdf_b.shape[0] - 1, depth_scale, depth_max,
-            dilate_active)
-        n_active = n_active + n_mask
-        brick_integrate(
-            sdf_b, weight_b, rgb_b, ids, fbits, n_chunk, T_chunk, intr,
-            d_chunk, None if colors is None else colors[chunk],
-            origin, brick_dims, voxel_size, trunc, depth_scale, depth_max,
-            max_weight,
-        )
+        count("tsdf.chunks")
+        with span("tsdf.chunk"):
+            chunk = slice(f0, f0 + frames_per_dispatch)
+            d_chunk = depths[chunk]
+            T_chunk = T_w2c_all[chunk].contiguous()
+            ids, fbits, n_chunk, n_mask = chunk_active_set(
+                d_chunk, T_chunk, intr, origin, brick_dims, voxel_size,
+                trunc, max_active, sdf_b.shape[0] - 1, depth_scale,
+                depth_max, dilate_active)
+            n_active = n_active + n_mask
+            with span("tsdf.k1"):
+                brick_integrate(
+                    sdf_b, weight_b, rgb_b, ids, fbits, n_chunk, T_chunk,
+                    intr, d_chunk, None if colors is None else colors[chunk],
+                    origin, brick_dims, voxel_size, trunc, depth_scale,
+                    depth_max, max_weight,
+                )
     return n_active
 
 
+@spanned("tsdf.integrate")
 def integrate_frames_bricked_device(
     grid: BrickGrid,
     depths,
@@ -515,7 +530,7 @@ def host_active_ids(mask, brick_dims, nb_scratch, dilate_active=True,
     bool mask read on the host, optionally dilated one brick along each
     axis (no wrap-around), ``np.flatnonzero``, padded to a multiple of
     ``pad_multiple`` with ``nb_scratch``. Returns (ids i32 numpy, n)."""
-    m = mask.cpu().numpy().reshape(brick_dims)
+    m = to_host(mask).numpy().reshape(brick_dims)
     if dilate_active:
         m = _dilate_no_wrap(m)
     ids = np.flatnonzero(m.reshape(-1)).astype(np.int32)
