@@ -7,14 +7,17 @@ layer, the stitch, the teleop half and the mesh layer.
 Phases (each prints a line; any failure raises and the exit code is not 0):
   1. device   require a CUDA card; print nvidia-smi's name and power limit
   2. build    compile the CUDA kernels from reconplan_tpu_torch/csrc; print
-              ptxas's registers, shared memory and spills of the K1, K2, K3
-              and K6 kernels, their SASS instruction counts (K6: the loads
-              and adds of its step loop) and the occupancy query's blocks
-              per SM of K1 (depth and color), K3 and K6
-  3. kernels  K2, K1 and K3 against their plain PyTorch versions on the
-              card, at the bench shapes (512^3, one 8-frame chunk of the
-              bench scene with the real ids / fbits / live count of the mask
-              pipeline; K1 again with color on a 4-frame chunk; K3 with the
+              ptxas's registers, shared memory and spills of the K1, K2,
+              K3, K6 and refine kernels, their SASS instruction counts (K6:
+              the loads and adds of its step loop) and the occupancy
+              query's blocks per SM of K1 (depth and color), K3 and K6
+  3. kernels  K2, the refine (K7), K1 and K3 against their plain PyTorch
+              versions on the card, at the bench shapes (512^3, one 8-frame
+              chunk of the bench scene with the real ids / fbits / live
+              count of the mask pipeline; the refine at the fuse cell's
+              cap of 4,096 candidates, with the host's microseconds a
+              call of the kernel's wrapper and of the plain chain; K1
+              again with color on a 4-frame chunk; K3 with the
               host-compacted ids of the chunk padded to 512, and again
               padded to 4096 and to 8192 as the sharded path pads, the
               padding's share of the time). Each gets its device time per
@@ -165,14 +168,15 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
               reduced depth is printed with the default it replaces, and
               each tool's seconds
 Launch counters are zeroed just before phase 5 and read after phase 5 (one
-bench batch) and after phase 6 (K1 and K2), zeroed before and read after
-each of phases 7 and 8 (K3), 11 (every ablation arm) and 12 (every probe
-arm), zeroed just before run_scan in phase 13 and read just after it
-(K1 and K2 again), and zeroed at the start of phase 17 and read at its end
-(K3: the bricked reference and the 5 launches of (c)), and zeroed at the
-start of phase 18 and read after bench_fusion, zeroed just before
-bench_grr and read just after it, and read at the phase's end (K1 and K2):
-each kernel must have been launched by its paths.
+bench batch) and after phase 6 (K1, K2 and the refine), zeroed before and
+read after each of phases 7 and 8 (K3), 11 (every ablation arm) and 12
+(every probe arm), zeroed just before run_scan in phase 13 and read just
+after it (K1, K2 and the refine again), and zeroed at the start of phase
+17 and read at its end (K3: the bricked reference and the 5 launches of
+(c)), and zeroed at the start of phase 18 and read after bench_fusion,
+zeroed just before bench_grr and read just after it, and read at the
+phase's end (K1, K2 and the refine): each kernel must have been launched
+by its paths. The refine counts a call of its wrapper (three kernels).
 
 The line before the last is a JSON summary of the kernels. For each:
   ms, device_ms   the kernel's device time per launch: 20 launches
@@ -195,9 +199,10 @@ The line before the last is a JSON summary of the kernels. For each:
                   that only moves bytes can read above bound_share 1.
   launches        launches by the paths of this run; launches_per_batch
                   those of one 32-frame batch of the path that launches it
-                  (the device path for K1 and K2, launches_per_orbit for
-                  the banana orbit; the host-compacted path for K3; 0 for
-                  the tools' kernels K4-K6).
+                  (the device path for K1, K2 and the refine,
+                  launches_per_orbit for the banana orbit; the
+                  host-compacted path for K3; 0 for the tools' kernels
+                  K4-K6).
   library_ms      one PyTorch call computing the same function, or null
                   where none does (K1-K5); for K6, x[s0:s0+L, :128].sum(0),
                   which sums in another order and once, not 2,048 times: a
@@ -205,9 +210,12 @@ The line before the last is a JSON summary of the kernels. For each:
 K1's entry also has vs_old_design (the first design's device time over
 K1's, same call), arm_full_device_ms (the ablation arm `full` in the same
 turns), launches_per_scan (phase 13), launches_per_bench_fusion and
-launches_per_bench_grr (phase 18; K2's entry too), K2's graph_floor_ms (a tiny torch op in a CUDA graph);
-the ablation and probe entries give each arm's numbers under "arms", and
-at the top
+launches_per_bench_grr (phase 18; K2's and the refine's entries too),
+K2's graph_floor_ms (a tiny torch op in a CUDA graph); the refine's entry
+(`refine_bits`, which replaces no TPU kernel) has host_us and
+plain_host_us (the host's microseconds a call, issued back to back,
+untraced), its candidates and how many of them it tested; the ablation
+and probe entries give each arm's numbers under "arms", and at the top
 those of K5's `full`, K4's `smem_window` and the probe's `baseline`. The
 last line is the run's JSON status.
 """
@@ -363,6 +371,11 @@ K1_OPS, K1_COLOR_OPS = 42, 12
 # projection 18, z clamp 1, the two cell coordinates 6, the bin range 8,
 # the z test 1
 K2_OPS = 34
+# f32 operations of one refine (brick, frame) test, in csrc/refine_bits.cu:
+# projection 18, z clamp 1, the two pixel coordinates 6, the in-image and
+# z tests 5, two roundings, depth / scale 1, the depth tests 2, |d - z| 2,
+# the band test 1
+K7_OPS = 38
 
 
 def once_ms(fn):
@@ -851,8 +864,8 @@ def parallel_phase(card, frames):
 def benchmarks_phase(card):
     """Phase 18: every tool of ``reconplan_tpu_torch/benchmarks/`` that
     the earlier phases do not run, on the card through its ``main``, each
-    with its check. Returns K2's and K1's launches in the phase, in the
-    ``bench_fusion`` run and in the ``bench_grr`` run."""
+    with its check. Returns K2's, the refine's and K1's launches in the
+    phase, in the ``bench_fusion`` run and in the ``bench_grr`` run."""
     import tempfile
 
     from reconplan_tpu_torch.benchmarks import (
@@ -860,7 +873,8 @@ def benchmarks_phase(card):
         diag_posefree, dtw_gap, eval_poisson_fidelity, eval_scan_coverage,
         expand_coverage, refine_roadmap)
     from reconplan_tpu_torch.io.meshio import save_ply
-    from reconplan_tpu_torch.ops.kernels import active_mask, brick_integrate
+    from reconplan_tpu_torch.ops.kernels import (
+        active_mask, brick_integrate, refine_bits)
     from reconplan_tpu_torch.ops.nn import _smallest, se3_knn, se3_pairwise
 
     t_phase = time.perf_counter()
@@ -875,10 +889,15 @@ def benchmarks_phase(card):
 
     def kernel_launches():
         return {"active_mask": active_mask.launches,
-                "brick_integrate": brick_integrate.launches}
+                "brick_integrate": brick_integrate.launches,
+                "refine_bits": refine_bits.launches}
 
-    active_mask.launches = 0
-    brick_integrate.launches = 0
+    def set_launches(counts):
+        active_mask.launches = counts["active_mask"]
+        brick_integrate.launches = counts["brick_integrate"]
+        refine_bits.launches = counts["refine_bits"]
+
+    set_launches(dict.fromkeys(kernel_launches(), 0))
 
     # (a) the banana orbit at full width: 32 frames of 640x480, 256^3 and
     # 512^3, REPS batches after a warm one
@@ -993,19 +1012,16 @@ def benchmarks_phase(card):
         # (f) the closed loop from a 40-node roadmap, then the coverage
         # table of its mesh
         before = kernel_launches()
-        active_mask.launches = 0
-        brick_integrate.launches = 0
+        set_launches(dict.fromkeys(before, 0))
         row, grr, tris = run("bench_grr", lambda: bench_grr.main(
             n_nodes=40))
         per_grr = kernel_launches()
-        active_mask.launches = before["active_mask"] + per_grr["active_mask"]
-        brick_integrate.launches = (before["brick_integrate"]
-                                    + per_grr["brick_integrate"])
+        set_launches({k: before[k] + per_grr[k] for k in before})
         if row["waypoints_solved"] < 490 or min(per_grr.values()) == 0:
             raise AssertionError(f"bench_grr: {row}, launches {per_grr}")
         phase("benchmarks", f"bench_grr at 40 roadmap nodes (a reduced "
               f"depth; default 200), 500 waypoints, 16 pictures, 256^3: "
-              + json.dumps(row) + f" | K2 / K1 launches "
+              + json.dumps(row) + f" | K2 / K1 / refine launches "
               f"{json.dumps(per_grr)} | {seconds['bench_grr']:.1f} s")
         mesh = os.path.join(tmp, "fused_mesh.ply")
         save_ply(mesh, triangles=tris.cpu().numpy())
@@ -1097,7 +1113,7 @@ def main():
         active_mask, active_mask_reference, brick_ablate,
         brick_ablate_reference, brick_integrate, brick_integrate_fixed,
         brick_integrate_fixed_reference, brick_integrate_reference, build,
-        gather_probe)
+        gather_probe, refine_bits)
     from reconplan_tpu_torch.ops.kernels.brick_ablate import (
         ARMS, occupancy as ablate_occupancy_query)
     from reconplan_tpu_torch.ops.kernels.brick_integrate import occupancy
@@ -1127,7 +1143,8 @@ def main():
     for name, u in build.resource_usage().items():
         if name.startswith(("brick_integrate_kernel", "active_mask_kernel",
                             "brick_integrate_fixed_kernel",
-                            "gather_probe_kernel", "brick_ablate_")):
+                            "gather_probe_kernel", "brick_ablate_",
+                            "refine_")):
             phase("build", f"ptxas {name}: {u.get('registers')} registers, "
                   f"{u.get('smem_bytes')} B smem, spill stores "
                   f"{u.get('spill_stores')} B, loads {u.get('spill_loads')} B")
@@ -1209,6 +1226,58 @@ def main():
           f"{k2['bound_by']}), events {k2['events_ms']:.4f}, plain "
           f"{k2['plain_ms']:.4f} ms | a tiny torch op in a CUDA graph "
           f"{k2['graph_floor_ms']:.5f}")
+
+    # the refine at the fuse cell's shapes: 512^3, 8 frames, cap 4,096
+    cap = 4096
+    k7_args = (bits, d8, T8, grid.origin, VOXEL, trunc, intr, bd, cap,
+               1000.0, 3.0)
+    k7_run = lambda: refine_bits(*k7_args)  # noqa: E731
+
+    def k7_plain():
+        return bits & tb._exact_frame_bits_dilated(*k7_args)
+
+    refined, refined_ref = k7_run(), k7_plain()
+    refined_cpu = tb.refine_frame_bits(
+        bits.cpu(), d8.cpu(), T8.cpu(), intr, grid.origin.cpu(), bd, VOXEL,
+        trunc, cap)
+    torch.cuda.synchronize()
+    for name, ref in (("the plain version on the card", refined_ref),
+                      ("the plain version on the CPU", refined_cpu)):
+        if not torch.equal(refined.cpu(), ref.cpu()):
+            raise AssertionError(
+                f"refine bits differ from {name} on "
+                f"{(refined.cpu() != ref.cpu()).sum().item()} bricks")
+
+    def host_us(fn, reps=200):
+        """The host's microseconds a call, issued back to back, untraced;
+        the card is synchronised after the loop, not inside it."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / reps * 1e6
+
+    n_cand = int((bits != 0).sum().item())
+    tested = min(cap, n_cand)
+    k7 = {"max_abs_err": (refined.long() - refined_ref.long()).abs()
+          .max().item(), "events_ms": events_ms(k7_run),
+          "device_ms": graph_ms(k7_run), "plain_ms": events_ms(k7_plain),
+          "host_us": host_us(k7_run), "plain_host_us": host_us(k7_plain),
+          "candidates": n_cand, "tested": tested}
+    # K2's bits read and the result written once, one depth pixel a tested
+    # (brick, frame), the poses; one test a tested (brick, frame)
+    k7.update(bound_fields(bound(NB * 4 * 2 + tested * 8 * 4 + 8 * 64,
+                                 tested * 8 * K7_OPS), k7["device_ms"]))
+    phase("kernels", f"refine_bits: bits identical to the plain version on "
+          f"the card and on the CPU on {NB} bricks ({n_cand} candidates, "
+          f"{tested} tested, {(refined != 0).sum().item()} kept) | device "
+          f"{k7['device_ms']:.5f} ms a call of 3 launches (bound "
+          f"{k7['bound_ms']:.5f}, {k7['bound_by']}), events "
+          f"{k7['events_ms']:.4f}, plain {k7['plain_ms']:.4f} ms | host "
+          f"{k7['host_us']:.1f} us a call, plain {k7['plain_host_us']:.1f}")
 
     def k1_compare(n_frames, colors, rgb):
         """K1 against its plain version on a chunk of the bench scene;
@@ -1361,6 +1430,7 @@ def main():
     # --- 5. the main path: bench scene --------------------------------------
     active_mask.launches = 0
     brick_integrate.launches = 0
+    refine_bits.launches = 0
     grid = tb.make_brick_grid((N,) * 3, ORIGIN, VOXEL, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1372,7 +1442,8 @@ def main():
     if not torch.isfinite(grid.sdf).all() or w.max().item() <= 0:
         raise AssertionError("bench grid is empty or not finite")
     per_batch = {"active_mask": active_mask.launches,
-                 "brick_integrate": brick_integrate.launches}
+                 "brick_integrate": brick_integrate.launches,
+                 "refine_bits": refine_bits.launches}
     phase("bench", f"32 frames 640x480 -> {N}^3: n_active {int(n_active)}, "
           f"{32 / dt:.1f} frames/s cold-grid wall clock "
           f"(host clock, one batch) | {card}")
@@ -1407,7 +1478,8 @@ def main():
     torch.cuda.synchronize()
     times["extract_s"] = time.perf_counter() - t0
     launches = {"active_mask": active_mask.launches,
-                "brick_integrate": brick_integrate.launches}
+                "brick_integrate": brick_integrate.launches,
+                "refine_bits": refine_bits.launches}
     per_orbit = {k: v - per_batch[k] for k, v in launches.items()}
     if len(tris) == 0:
         raise AssertionError("banana mesh has no triangles")
@@ -1759,6 +1831,7 @@ def main():
     n_scan = 500
     active_mask.launches = 0
     brick_integrate.launches = 0
+    refine_bits.launches = 0
     with tempfile.TemporaryDirectory() as out:
         t0 = time.perf_counter()
         scan = run_scan(roadmap_dir=roadmap, n_waypoints=n_scan, n_images=12,
@@ -1766,7 +1839,8 @@ def main():
                         close_depth=192, out_dir=out)
         scan_s = time.perf_counter() - t0
         per_scan = {"active_mask": active_mask.launches,
-                    "brick_integrate": brick_integrate.launches}
+                    "brick_integrate": brick_integrate.launches,
+                    "refine_bits": refine_bits.launches}
         files = sorted(os.listdir(out))
         with open(os.path.join(out, "ctraj.txt")) as f:
             entries = re.findall(r"^[^,\n]+,(None|\[[^\]]*\])", f.read(),
@@ -2187,6 +2261,17 @@ def main():
                   "device_ms", "events_ms", "plain_ms", "max_abs_err",
                   "bound_ms", "bound_by", "bound_share", "live_bricks",
                   "brick_frames")}),
+        entry("refine_bits", "refine_bits.cu",
+              "no TPU kernel: the XLA refine, "
+              "reconplan_tpu/ops/tsdf_brick.py:431", k7,
+              launches=launches["refine_bits"],
+              launches_per_batch=per_batch["refine_bits"],
+              launches_per_orbit=per_orbit["refine_bits"],
+              launches_per_scan=per_scan["refine_bits"],
+              launches_per_bench_fusion=per_fusion["refine_bits"],
+              launches_per_bench_grr=per_grr["refine_bits"],
+              **{k: k7[k] for k in ("host_us", "plain_host_us",
+                                    "candidates", "tested")}),
         entry("brick_integrate_fixed", "brick_integrate_fixed.cu",
               "reconplan_tpu/ops/tsdf_brick.py:503", k3,
               launches=launches["brick_integrate_fixed"],

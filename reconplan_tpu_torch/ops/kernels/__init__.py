@@ -9,10 +9,13 @@ PyTorch versions and launch counters.
  K3    ``brick_integrate_fixed`` ``tsdf_brick.py:503`` ``_integrate_kernel``
  K4/5  ``brick_ablate``          ``benchmarks/profile_brick.py:320`` / ``:75``
  K6    ``gather_probe``          ``benchmarks/probe_sublane_ops.py:35``
+ K7    ``refine_bits``           no kernel: XLA ops, ``tsdf_brick.py:431``
 =====  ========================  ===================================
 
 K1-K3 replace TPU kernels of ``reconplan_tpu/ops``, K4-K6 those of the
-repo's ``benchmarks/`` folder.
+repo's ``benchmarks/`` folder. K7 replaces the eager chain of the mask
+pipeline's refine; its plain version is
+``ops/tsdf_brick._exact_frame_bits_dilated``.
 """
 
 from reconplan_tpu_torch.ops.kernels.active_mask import (
@@ -35,6 +38,7 @@ from reconplan_tpu_torch.ops.kernels.gather_probe import (
     gather_probe,
     gather_probe_reference,
 )
+from reconplan_tpu_torch.ops.kernels.refine_bits import refine_bits
 
 __all__ = [
     "active_mask",
@@ -47,4 +51,5 @@ __all__ = [
     "brick_integrate_reference",
     "gather_probe",
     "gather_probe_reference",
+    "refine_bits",
 ]

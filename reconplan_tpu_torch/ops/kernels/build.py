@@ -57,6 +57,7 @@ _SIGNATURES = {
     "brick_ablate_occupancy": [_I, _P, _P],
     "gather_probe_launch": [_I] + [_P] * 2 + [_I] * 6 + [_P],
     "gather_probe_occupancy": [_I, _P, _P],
+    "refine_bits_launch": [_P] * 7 + [_I] * 7 + [_F] * 8 + [_P],
 }
 
 

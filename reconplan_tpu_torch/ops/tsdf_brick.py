@@ -7,7 +7,9 @@ loop of ``integrate_frames_bricked_device``, which hands the compacted
 bricks to K1; and the host-compacted path ``integrate_frames_bricked``
 (centre-sample mask -> numpy compaction -> K3). The kernels live in
 ``ops/kernels``: CUDA C++ for CUDA tensors, their plain PyTorch versions
-for CPU tensors.
+for CPU tensors. The refine's plain version,
+:func:`_exact_frame_bits_dilated`, lives here; :func:`refine_frame_bits`
+launches its kernel on CUDA tensors.
 
 Memory layout: the volume lives as bricked arrays ``(NB + 1, 8, 128)``
 (one row per 8x8x16-voxel brick: sublane = local z, lane = local y*16 +
@@ -36,6 +38,11 @@ from reconplan_tpu_torch.ops.kernels.active_mask import (
 from reconplan_tpu_torch.ops.kernels.brick_integrate import brick_integrate
 from reconplan_tpu_torch.ops.kernels.brick_integrate_fixed import (
     brick_integrate_fixed,
+)
+from reconplan_tpu_torch.ops.kernels.refine_bits import (
+    band as refine_band,
+    check_frames,
+    refine_bits,
 )
 from reconplan_tpu_torch.utils.device import resolve_device, scalar_tensor
 from reconplan_tpu_torch.utils.profiling import (
@@ -289,8 +296,7 @@ def _exact_frame_bits_dilated(occ_bits, depths, T_w2c, origin, voxel_size,
         torch.clamp(cand, max=NB - 1), brick_dims, origin,
         float(np.float32(voxel_size)))
     # Python-double band, as the JAX function computes it from static floats
-    r_b = 0.5 * voxel_size * np.sqrt(BRICK_X**2 + BRICK_Y**2 + BRICK_Z**2)
-    band = trunc + r_b
+    band = refine_band(voxel_size, trunc)
     scale = scalar_tensor(depth_scale, depths.device)
     ebits = torch.zeros(cand.shape, dtype=torch.int32, device=dev)
     for f in range(F):
@@ -391,10 +397,18 @@ def refine_frame_bits(bits, d_chunk, T_chunk, intr, origin, brick_dims,
                       depth_max=3.0):
     """The refine stage of :func:`chunk_active_set`: the exact per-frame
     centre test on K2's candidate ``bits`` (at most min(max_active, 4096)
-    of them) + one brick of dilation, intersected with ``bits``."""
-    return bits & _exact_frame_bits_dilated(
-        bits, d_chunk, T_chunk, origin, voxel_size, trunc, intr,
-        brick_dims, min(max_active, 4096), depth_scale, depth_max)
+    of them) + one brick of dilation, intersected with ``bits``.
+
+    CUDA tensors launch the refine kernel (``ops/kernels/refine_bits``,
+    counted in ``tsdf.refine_fused``); CPU tensors take the plain version,
+    :func:`_exact_frame_bits_dilated`. At most 31 frames."""
+    check_frames(d_chunk.shape[0])
+    args = (bits, d_chunk, T_chunk, origin, voxel_size, trunc, intr,
+            brick_dims, min(max_active, 4096), depth_scale, depth_max)
+    if bits.device.type == "cpu":
+        return bits & _exact_frame_bits_dilated(*args)
+    count("tsdf.refine_fused")
+    return refine_bits(*args)
 
 
 def compact_active(bits, max_active, nb_scratch):

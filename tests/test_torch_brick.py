@@ -21,7 +21,9 @@ from reconplan_tpu_torch.ops.kernels import (
     active_mask,
     active_mask_reference,
     brick_integrate,
+    refine_bits,
 )
+from reconplan_tpu_torch.utils import profiling
 from test_tsdf_marching import make_sphere_depths
 from torch_parity import f32, jax_eager, t
 
@@ -180,6 +182,50 @@ def test_exact_frame_bits_dilated_bitexact(scene):
             t(ORIGIN, torch.float32), scene["vox"], scene["trunc"],
             tuple(map(f32, scene["K"])), bd, cap, 1000.0, 3.0)
         assert_bits_match(et, ej)
+
+
+def test_refine_frame_bits_takes_the_plain_version_on_cpu(scene):
+    """On CPU tensors the refine stage is the plain chain: no kernel call,
+    no ``tsdf.refine_fused``."""
+    bd = _brick_dims(scene["dims"])
+    d, w2c = t(scene["depths"]), t(scene["w2c"])
+    origin, intr = t(ORIGIN, torch.float32), tuple(map(f32, scene["K"]))
+    occ = tb._build_depth_occupancy(d, 1000.0, 3.0, 8)
+    bits = active_mask(bd, origin, scene["vox"], scene["trunc"], *occ, w2c,
+                       *intr, mip_cell=8)
+    with profiling.recording() as rec:
+        got = tb.refine_frame_bits(bits, d, w2c, intr, origin, bd,
+                                   scene["vox"], scene["trunc"], 32768)
+    want = bits & tb._exact_frame_bits_dilated(
+        bits, d, w2c, origin, scene["vox"], scene["trunc"], intr, bd, 4096,
+        1000.0, 3.0)
+    assert torch.equal(got, want) and (got != 0).any()
+    assert refine_bits.launches == 0
+    assert "tsdf.refine_fused" not in rec.counters
+    assert rec.counters == {}
+
+
+def test_refine_refuses_more_frames_than_its_bit_words_hold():
+    """31 frames at most: bit 31 is the i32 word's sign, which the plain
+    version's max-scatter drops and the JAX function cannot form. The
+    stage and the kernel's wrapper both refuse 32, as K2's wrapper refuses
+    33, before any work."""
+    bd, origin = (2, 2, 2), t(ORIGIN, torch.float32)
+    bits = torch.ones(8, dtype=torch.int32)
+    d = torch.zeros((32, 16, 32), dtype=torch.float32)
+    T = torch.eye(4).expand(32, 4, 4).contiguous()
+    intr = (20.0, 20.0, 16.0, 8.0)
+    with pytest.raises(ValueError, match="32 frames"):
+        tb.refine_frame_bits(bits, d, T, intr, origin, bd, 0.01, 0.05, 4096)
+    with pytest.raises(ValueError, match="32 frames"):
+        refine_bits(bits, d, T, origin, 0.01, 0.05, intr, bd, 4096)
+    with pytest.raises(ValueError, match="device"):
+        refine_bits(bits, d[:31], T[:31], origin, 0.01, 0.05, intr, bd, 4096)
+    assert refine_bits.launches == 0
+    # 31 frames take the plain chain
+    out = tb.refine_frame_bits(bits, d[:31], T[:31], intr, origin, bd, 0.01,
+                               0.05, 4096)
+    assert out.shape == (8,) and out.dtype == torch.int32
 
 
 def test_active_brick_mask_bitexact(scene):

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from reconplan_tpu_torch import bench
 from reconplan_tpu_torch.bench import make_frames
 from reconplan_tpu_torch.ops import tsdf as ttsdf
 from reconplan_tpu_torch.ops import tsdf_brick as tb
@@ -29,6 +30,7 @@ from reconplan_tpu_torch.ops.kernels import (
     brick_integrate_reference,
     gather_probe,
     gather_probe_reference,
+    refine_bits,
 )
 from reconplan_tpu_torch.ops.kernels.active_mask import MIP_CELLS
 from reconplan_tpu_torch.ops.kernels.brick_ablate import ARMS, footprint
@@ -52,6 +54,7 @@ from reconplan_tpu_torch.parallel import (
     make_sharded_brick_grid,
     sharded_integrate_frames_bricked,
 )
+from reconplan_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -470,6 +473,165 @@ def test_k2_wrapper_refuses_other_cells(chunk):
         active_mask((8, 8, 4), chunk["origin"], VOX, 5 * VOX, occ0, occ1,
                     binp, chunk["T"], *chunk["intr"], mip_cell=4)
     assert active_mask.launches == before
+
+
+# --- the refine (refine_bits): tests, ranks past the cap, wrap-around -----
+
+# 2,176 bricks: two whole tiles of 1,024 and part of a third
+REFINE_BD = (17, 16, 8)
+FACES = [(0,), (-1,), (slice(None), 0), (slice(None), -1), (Ellipsis, 0),
+         (Ellipsis, -1)]
+
+
+def _refine_inputs(card, n_frames, mip_cell, bd=REFINE_BD, seed=31):
+    """A chunk of the 128x256 sphere frames at fx 300 on the wide grid cut
+    to ``bd`` bricks, K2's bits, and more candidates with random frame
+    bits on every face of the grid, whose dilation wraps around."""
+    depths, poses, K = make_frames(n_frames, H=128, W=256, fx=300.0,
+                                   fy=300.0)
+    d = torch.as_tensor(depths, device=card)
+    T = torch.linalg.inv(torch.as_tensor(poses, device=card)).contiguous()
+    intr = tuple(float(np.float32(v)) for v in K)
+    origin = torch.tensor(WIDE_ORIGIN, dtype=torch.float32, device=card)
+    occ = tb._build_depth_occupancy(d, 1000.0, 3.0, mip_cell)
+    bits = active_mask(bd, origin, WIDE_VOX, 5 * WIDE_VOX, *occ, T, *intr,
+                       mip_cell=mip_cell)
+    g = torch.Generator().manual_seed(seed)
+    b3 = bits.cpu().reshape(bd)
+    for face in FACES:
+        shape = b3[face].shape
+        word = torch.randint(1, 1 << n_frames, shape, generator=g,
+                             dtype=torch.int32)
+        b3[face] |= torch.where(torch.rand(shape, generator=g) < 0.3,
+                                word, 0).to(torch.int32)
+    return b3.reshape(-1).to(card), d, T, intr, origin
+
+
+def _refine_plain(bits, d, T, intr, origin, bd, cap, vox=WIDE_VOX):
+    return bits & tb._exact_frame_bits_dilated(
+        bits, d, T, origin, vox, 5 * vox, intr, bd, cap, 1000.0, 3.0)
+
+
+def _refine(bits, d, T, intr, origin, bd, cap, vox=WIDE_VOX):
+    before = refine_bits.launches
+    out = refine_bits(bits, d, T, origin, vox, 5 * vox, intr, bd, cap)
+    torch.cuda.synchronize()
+    assert refine_bits.launches == before + 1
+    return out
+
+
+@pytest.mark.parametrize("cap", [7, 4096, 1 << 20])
+@pytest.mark.parametrize("mip_cell", MIP_CELLS)
+@pytest.mark.parametrize("n_frames", [1, 4, 8])
+def test_refine_equals_plain(card, n_frames, mip_cell, cap):
+    """The refine kernel against its plain version: most candidates past
+    the cap (7), the production cap, and a cap no grid reaches; candidates
+    on every face; NB not a multiple of the kernel's tile."""
+    args = _refine_inputs(card, n_frames, mip_cell)
+    bits = args[0]
+    n_cand = int((bits != 0).sum())
+    assert n_cand > 7 and np.prod(REFINE_BD) % 1024
+    got = _refine(*args, REFINE_BD, cap)
+    assert torch.equal(got, _refine_plain(*args, REFINE_BD, cap))
+    assert (got != 0).any()
+    if cap > n_cand:  # every candidate tested: the test prunes some
+        assert (got != bits).any()
+
+
+def test_refine_dilation_wraps_around(card):
+    """Brick 0 is tested and fails (far from the sphere); the last brick,
+    past a cap of 1, keeps its bits, and reaches brick 0 only across the
+    grid's three wrap-around faces."""
+    bits, d, T, intr, origin = _refine_inputs(card, 4, 8)
+    bits = torch.zeros_like(bits)
+    bits[0] = bits[-1] = 0b101
+    got = _refine(bits, d, T, intr, origin, REFINE_BD, 1)
+    assert torch.equal(got, _refine_plain(bits, d, T, intr, origin,
+                                          REFINE_BD, 1))
+    assert int(got[0]) == int(got[-1]) == 0b101
+    tested = _refine(bits, d, T, intr, origin, REFINE_BD, 2)
+    assert torch.equal(tested, _refine_plain(bits, d, T, intr, origin,
+                                             REFINE_BD, 2))
+    assert int(tested[0]) == int(tested[-1]) == 0
+
+
+def test_refine_without_a_candidate(card):
+    bits, d, T, intr, origin = _refine_inputs(card, 8, 8)
+    bits = torch.zeros_like(bits)
+    got = _refine(bits, d, T, intr, origin, REFINE_BD, 4096)
+    assert torch.equal(got, bits)
+
+
+@pytest.mark.parametrize("max_active", [32768, 2048])
+def test_refine_at_the_fuse_cells_shape(card, max_active):
+    """512^3, one 8-frame chunk of 640x480 bench frames (3,571
+    candidates), the cap at 4,096 and at 2,048 through
+    ``refine_frame_bits``: the kernel, counted once in ``tsdf.refine_fused``,
+    equals the plain version on the card and on the CPU."""
+    depths, poses, K = make_frames(8)
+    d = torch.as_tensor(depths, device=card)
+    T = torch.linalg.inv(torch.as_tensor(poses, device=card)).contiguous()
+    intr = tuple(float(np.float32(v)) for v in K)
+    grid = tb.make_brick_grid((bench.N,) * 3, bench.ORIGIN, bench.VOXEL,
+                              device=card)
+    bd = grid.brick_dims
+    occ = tb._build_depth_occupancy(d, 1000.0, 3.0, 8)
+    bits = active_mask(bd, grid.origin, bench.VOXEL, grid.trunc, *occ, T,
+                       *intr, mip_cell=8)
+    cap = min(max_active, 4096)
+    assert int((bits != 0).sum()) > 2048
+    before = refine_bits.launches
+    with profiling.recording() as rec:
+        got = tb.refine_frame_bits(bits, d, T, intr, grid.origin, bd,
+                                   bench.VOXEL, grid.trunc, max_active)
+    torch.cuda.synchronize()
+    assert refine_bits.launches == before + 1
+    assert rec.counters["tsdf.refine_fused"] == 1
+    plain = bits & tb._exact_frame_bits_dilated(
+        bits, d, T, grid.origin, bench.VOXEL, grid.trunc, intr, bd, cap,
+        1000.0, 3.0)
+    assert torch.equal(got, plain)
+    cpu = tb.refine_frame_bits(bits.cpu(), d.cpu(), T.cpu(), intr,
+                               grid.origin.cpu(), bd, bench.VOXEL,
+                               grid.trunc, max_active)
+    assert torch.equal(got.cpu(), cpu)
+    assert (got != bits).any() and (got != 0).any()
+
+
+@pytest.mark.parametrize("max_active", [16, 4096])
+def test_chunk_active_set_on_the_card_is_its_stages_in_order(chunk,
+                                                             max_active):
+    """``chunk_active_set`` on the card (the refine kernel) against its
+    stages run in order with the plain refine."""
+    d, T, intr, origin = chunk["d"], chunk["T"], chunk["intr"], chunk["origin"]
+    bd, nb, trunc = (8, 8, 4), 256, 5 * VOX
+    with profiling.recording() as rec:
+        got = tb.chunk_active_set(d, T, intr, origin, bd, VOX, trunc,
+                                  max_active, nb)
+    assert rec.counters["tsdf.refine_fused"] == 1
+    occ = tb._build_depth_occupancy(d, 1000.0, 3.0, 8)
+    bits = active_mask(bd, origin, VOX, trunc, *occ, T, *intr, mip_cell=8)
+    bits = bits & tb._exact_frame_bits_dilated(
+        bits, d, T, origin, VOX, trunc, intr, bd, min(max_active, 4096),
+        1000.0, 3.0)
+    want = tb.compact_active(bits, max_active, nb)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[2].item()) > 0
+
+
+def test_refine_wrapper_refuses_what_it_cannot_take(card):
+    bits, d, T, intr, origin = _refine_inputs(card, 4, 8)
+    before = refine_bits.launches
+    d32 = d[:1].expand(32, -1, -1).contiguous()
+    T32 = T[:1].expand(32, -1, -1).contiguous()
+    with pytest.raises(ValueError, match="32 frames"):
+        tb.refine_frame_bits(bits, d32, T32, intr, origin, REFINE_BD,
+                             WIDE_VOX, 5 * WIDE_VOX, 4096)
+    with pytest.raises(ValueError, match="T_w2c"):
+        refine_bits(bits, d, T.transpose(1, 2), origin, WIDE_VOX,
+                    5 * WIDE_VOX, intr, REFINE_BD, 4096)
+    assert refine_bits.launches == before
 
 
 # --- K3: padding anywhere, list lengths around one wave, streams ------------
