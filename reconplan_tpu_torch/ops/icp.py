@@ -12,7 +12,11 @@ solve is one ``lax.while_loop``; here it is a Python loop that keeps a
 ``live`` flag on the device: the transform, the rmse and the iteration
 count change only while the JAX stop test holds, so the loop takes
 exactly the JAX number of iterations, and the host asks the flag only
-every ``CHECK_EVERY`` iterations (each question is a synchronisation).
+every ``CHECK_EVERY`` iterations (each question is a synchronisation,
+counted as one ``host.reads``). Each step the host issues counts one
+``icp.steps``, frozen ones past convergence included, and each
+point-to-plane and colored solve is one span (``icp.point_to_plane``,
+``icp.colored``).
 
 The 6x6 normal equations and the batched 3x3 gradient fits go to
 ``torch.linalg.solve_ex``, which neither raises on a singular system nor
@@ -29,6 +33,7 @@ import torch
 from reconplan_tpu_torch.core import maths
 from reconplan_tpu_torch.ops.nn import knn, nearest_neighbor
 from reconplan_tpu_torch.ops.pointcloud import PointCloud, batched_eigh
+from reconplan_tpu_torch.utils.profiling import count, spanned, to_host
 
 # iterations between two looks at whether the solve is still live
 CHECK_EVERY = 4
@@ -129,8 +134,9 @@ def _solve(step, T0, max_iteration, relative_rmse):
     for it in range(max_iteration):
         live = live & ((prev - rmse).abs()
                        > relative_rmse * torch.clamp(rmse, min=1e-12))
-        if it and it % CHECK_EVERY == 0 and not bool(live):
+        if it and it % CHECK_EVERY == 0 and not bool(to_host(live)):
             break
+        count("icp.steps")
         T_new, rmse_new = step(T)
         T = torch.where(live, T_new, T)
         prev = torch.where(live, rmse, prev)
@@ -198,6 +204,7 @@ def _cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)
 
 
+@spanned("icp.point_to_plane")
 def icp_point_to_plane(
     source: PointCloud,
     target: PointCloud,  # must carry normals
@@ -259,6 +266,7 @@ def color_gradients(cloud: PointCloud, k_gradient: int = 10):
     return torch.linalg.solve_ex(AtA, Atb[..., None])[0][..., 0]  # (N, 3)
 
 
+@spanned("icp.colored")
 def colored_icp(
     source: PointCloud,
     target: PointCloud,  # must carry normals, colors, and gradients

@@ -15,7 +15,17 @@ decision (rescue a frame, integrate it, scrub outliers) is a host branch
 on one scalar read from the device, so only the arm taken runs. The
 model's compaction (``jnp.nonzero(size=cap, fill_value=0)``) is a
 fixed-capacity gather with no host read, and the overflow stays a device
-counter read once at the end of the sequence.
+counter read once at the end of the sequence. The reads here go through
+``utils/profiling.to_host``, so ``host.reads`` counts them.
+
+Spans and counters (``utils/profiling``): ``stitch.sequence`` holds a
+``stitch.prepare`` and a ``stitch.append`` for the first frame, then one
+``stitch.frame`` for each later frame (counter ``stitch.frames``), which
+holds ``stitch.prepare`` (back-projection, downsample, slot gather),
+``stitch.register`` (its ``stitch.normals`` around the normals and color
+gradients, and the solves' ``icp.*`` spans), ``stitch.gate``,
+``stitch.append`` and, every ``optimization_modulus`` frames,
+``stitch.outliers``.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from reconplan_tpu_torch.ops.pointcloud import (
     voxel_downsample,
 )
 from reconplan_tpu_torch.utils.device import resolve_device
+from reconplan_tpu_torch.utils.profiling import count, span, spanned, to_host
 
 # the seed of the pose-free rescue's draws; frame i draws from a
 # generator seeded with (RESCUE_SEED << 32) + i
@@ -116,6 +127,9 @@ class RGBDStitcher:
         # land a spurious plane-on-plane optimum; the best post-refine
         # tight score across tries picks the real lock
         self.global_rescue_tries = 3
+        # voxels the last stitch_sequence dropped past the model or frame
+        # buffer (0: nothing was dropped); None before the first
+        self.last_overflow = None
 
     # ------------------------------------------------------------------
     def create_point_cloud_from_rgbd(self, color_img, depth_img) -> PointCloud:
@@ -149,25 +163,39 @@ class RGBDStitcher:
         the tangential directions, then fine point-to-plane converges the
         geometry. Returns (T (4, 4), fitness) tensors.
         """
-        src_c = estimate_normals(
-            voxel_downsample(source, 2.0 * self.voxel_size), k=30)
-        tgt_c = estimate_normals(
-            voxel_downsample(target, 2.0 * self.voxel_size), k=30)
-        T = icp_point_to_plane(
+        return self._register_stages(source, target, T)[:2]
+
+    def _register_stages(self, source: PointCloud, target: PointCloud, T):
+        """:meth:`_register_j`, with the live steps of its three stages
+        (coarse, colored, fine; colored 0 without colors): (T, fitness,
+        steps (3,) int32) tensors."""
+        with span("stitch.normals"):
+            src_c = estimate_normals(
+                voxel_downsample(source, 2.0 * self.voxel_size), k=30)
+            tgt_c = estimate_normals(
+                voxel_downsample(target, 2.0 * self.voxel_size), k=30)
+        coarse = icp_point_to_plane(
             src_c, tgt_c, 2.0 * self.distance_threshold, init=T,
             max_iteration=25,
-        ).transformation
-        src = self.preprocess_point_cloud(source)
-        tgt = self.preprocess_point_cloud(target)
-        if source.has_colors and target.has_colors:
-            grads = color_gradients(tgt)
-            T = colored_icp(
+        )
+        T = coarse.transformation
+        steps = [coarse.iterations, torch.zeros_like(coarse.iterations)]
+        colored = source.has_colors and target.has_colors
+        with span("stitch.normals"):
+            src = self.preprocess_point_cloud(source)
+            tgt = self.preprocess_point_cloud(target)
+            grads = color_gradients(tgt) if colored else None
+        if colored:
+            res = colored_icp(
                 src, tgt, grads, self.distance_threshold, init=T,
                 max_iteration=35,
-            ).transformation
+            )
+            T, steps[1] = res.transformation, res.iterations
         res = icp_point_to_plane(
             src, tgt, self.distance_threshold, init=T, max_iteration=30)
-        return res.transformation, res.fitness
+        steps.append(res.iterations)
+        return (res.transformation, res.fitness,
+                torch.stack([n.to(torch.int32) for n in steps]))
 
     def _tight_score_j(self, cloud: PointCloud, model: PointCloud, T):
         """Fraction of cloud points within 1.5 voxels of the model after
@@ -229,7 +257,7 @@ class RGBDStitcher:
              else torch.as_tensor(initial_transform, dtype=torch.float32,
                                   device=dev))
         T, fit = self._register_j(source, target, T)
-        return T.cpu().numpy(), float(fit)
+        return to_host(T).numpy(), float(to_host(fit))
 
     # ------------------------------------------------------------------
     def _model_append(self, model: PointCloud, cloud: PointCloud, T,
@@ -290,6 +318,7 @@ class RGBDStitcher:
         return (torch.where(better, Tb, T0), torch.where(better, fitb, fit0),
                 torch.where(better, sb, s0))
 
+    @spanned("stitch.sequence")
     def stitch_sequence(self, color_images, depth_images, poses=None) -> PointCloud:
         """Incremental frame-to-model stitching (``stitcher.py:114-166``):
         register frame i to the merged model, transform + append + voxel
@@ -302,17 +331,21 @@ class RGBDStitcher:
         FPFH + RANSAC when its tight score collapses, and dropped when
         neither locks.
 
-        Sets ``last_fits`` (F-1,), ``last_transforms`` (F-1, 4, 4) and
-        ``last_scores`` (F-1, 2: chained and accepted tight score) as
-        numpy.
+        Sets ``last_fits`` (F-1,), ``last_transforms`` (F-1, 4, 4),
+        ``last_scores`` (F-1, 2: chained and accepted tight score) and
+        ``last_iterations`` (F-1, 3: the live steps of the coarse,
+        colored and fine stage of each frame's registration from its
+        seed) as numpy, and ``last_overflow``, the most voxels a buffer
+        could not hold (0 when none was dropped).
         """
         if len(color_images) != len(depth_images):
             raise ValueError("Number of color and depth images must match")
         dev = self.device
         f32 = dict(dtype=torch.float32, device=dev)
 
-        first = self.create_point_cloud_from_rgbd(color_images[0],
-                                                  depth_images[0])
+        with span("stitch.prepare"):
+            first = self.create_point_cloud_from_rgbd(color_images[0],
+                                                      depth_images[0])
         # seed the fixed-capacity model buffer by merging the first frame
         # into an empty buffer through the same voxel-compaction path
         cap = self.model_capacity
@@ -329,7 +362,8 @@ class RGBDStitcher:
                     if use_pose else None)
         eye = torch.eye(4, **f32)
         T0 = pose_seq[0] if use_pose else eye
-        combined, overflow = self._model_append(combined, first, T0)
+        with span("stitch.append"):
+            combined, overflow = self._model_append(combined, first, T0)
 
         # the frame buffer is sized independently of the model: one
         # frustum sees far fewer voxels than the whole scene
@@ -343,62 +377,78 @@ class RGBDStitcher:
         std_ratio = float(getattr(self, "outlier_std_ratio", 2.0))
         one = torch.ones((), **f32)
         T_prev = T_prev2 = eye
-        fits, Ts, scores = [], [], []
+        fits, Ts, scores, iterations = [], [], [], []
         for i in range(1, len(color_images)):
-            if use_pose:
-                init = pose_seq[i]
-            else:
-                # pose-free capture: constant-velocity seed — predict
-                # this frame's transform by extrapolating the last step's
-                # camera motion, T_prev @ (T_prev2^-1 T_prev)
-                init = _matmul4(T_prev, _matmul4(_inverse_rigid(T_prev2),
-                                                 T_prev))
-            current_full = self.create_point_cloud_from_rgbd(
-                color_images[i] if has_col else None, depth_images[i])
-            # compact the frame to a fixed buffer before registration:
-            # every downstream stage runs on fixed-size clouds
-            down = voxel_downsample(current_full, self.voxel_size)
-            cidx, ccount = _gather_slots(down.valid, fcap)
-            overflow = torch.maximum(overflow, ccount - fcap)
-            current = _take(down, cidx, ccount, fcap)
-            T, fit = self._register_j(current, combined, init)
-            integrate = True
-            s1 = s_best = one
-            if not use_pose:
-                # odometry chaining breaks when the camera jumps beyond
-                # ICP's capture basin, and on smooth objects the broken
-                # solve can still report high loose-threshold fitness —
-                # so gate on the tight-threshold score instead, and
-                # re-solve from a global initialization when it collapses
-                s1 = s_best = self._tight_score_j(current, combined, T)
-                if bool(s1 < self.global_rescue_score):
-                    T, fit, s_best = self._rescue(current, combined, T, fit,
-                                                  s1, i)
-                # neither the chained nor the rescued registration
-                # locked: drop the frame (an unlocked frame poisons the
-                # model) and hold the odometry chain at its last locked
-                # state so the next frame re-extrapolates from a sane pose
-                integrate = bool(s_best >= self.integrate_score_floor)
-                if not integrate:
-                    T, fit = T_prev, torch.zeros((), **f32)
-            else:
-                # trust-region gating against the known pose: smooth,
-                # low-texture objects let ICP slide along flat cost
-                # directions; corrections beyond the camera-pose error
-                # budget are rejected in favor of the prior
-                d = _matmul4(T, torch.linalg.inv(init))
-                rot_err = torch.arccos(torch.clamp(
-                    (torch.diagonal(d[:3, :3]).sum() - 1) / 2, -1, 1))
-                bad = ((torch.linalg.norm(d[:3, 3]) > self.pose_trust_trans)
-                       | (rot_err > self.pose_trust_rot))
-                T = torch.where(bad, init, T)
-            if integrate:
-                combined, overflow = self._model_append(combined, current, T,
-                                                        overflow)
-            if (i % self.optimization_modulus == 0
-                    and int(combined.valid.sum()) > 1000):
-                combined = remove_statistical_outliers(combined, 20,
-                                                       std_ratio)
+            count("stitch.frames")
+            with span("stitch.frame"):
+                if use_pose:
+                    init = pose_seq[i]
+                else:
+                    # pose-free capture: constant-velocity seed — predict
+                    # this frame's transform by extrapolating the last
+                    # step's camera motion, T_prev @ (T_prev2^-1 T_prev)
+                    init = _matmul4(T_prev, _matmul4(
+                        _inverse_rigid(T_prev2), T_prev))
+                with span("stitch.prepare"):
+                    current_full = self.create_point_cloud_from_rgbd(
+                        color_images[i] if has_col else None,
+                        depth_images[i])
+                    # compact the frame to a fixed buffer before
+                    # registration: every downstream stage runs on
+                    # fixed-size clouds
+                    down = voxel_downsample(current_full, self.voxel_size)
+                    cidx, ccount = _gather_slots(down.valid, fcap)
+                    overflow = torch.maximum(overflow, ccount - fcap)
+                    current = _take(down, cidx, ccount, fcap)
+                with span("stitch.register"):
+                    T, fit, steps = self._register_stages(
+                        current, combined, init)
+                integrate = True
+                s1 = s_best = one
+                with span("stitch.gate"):
+                    if not use_pose:
+                        # odometry chaining breaks when the camera jumps
+                        # beyond ICP's capture basin, and on smooth objects
+                        # the broken solve can still report high
+                        # loose-threshold fitness — so gate on the
+                        # tight-threshold score instead, and re-solve from
+                        # a global initialization when it collapses
+                        s1 = s_best = self._tight_score_j(current, combined,
+                                                          T)
+                        if bool(to_host(s1 < self.global_rescue_score)):
+                            T, fit, s_best = self._rescue(current, combined,
+                                                          T, fit, s1, i)
+                        # neither the chained nor the rescued registration
+                        # locked: drop the frame (an unlocked frame poisons
+                        # the model) and hold the odometry chain at its
+                        # last locked state so the next frame
+                        # re-extrapolates from a sane pose
+                        integrate = bool(to_host(
+                            s_best >= self.integrate_score_floor))
+                        if not integrate:
+                            T, fit = T_prev, torch.zeros((), **f32)
+                    else:
+                        # trust-region gating against the known pose:
+                        # smooth, low-texture objects let ICP slide along
+                        # flat cost directions; corrections beyond the
+                        # camera-pose error budget are rejected in favor of
+                        # the prior
+                        d = _matmul4(T, torch.linalg.inv(init))
+                        rot_err = torch.arccos(torch.clamp(
+                            (torch.diagonal(d[:3, :3]).sum() - 1) / 2, -1, 1))
+                        bad = ((torch.linalg.norm(d[:3, 3])
+                                > self.pose_trust_trans)
+                               | (rot_err > self.pose_trust_rot))
+                        T = torch.where(bad, init, T)
+                if integrate:
+                    with span("stitch.append"):
+                        combined, overflow = self._model_append(
+                            combined, current, T, overflow)
+                if i % self.optimization_modulus == 0:
+                    with span("stitch.outliers"):
+                        if int(to_host(combined.valid.sum())) > 1000:
+                            combined = remove_statistical_outliers(
+                                combined, 20, std_ratio)
             # on a dropped frame the odometry chain does not advance
             if integrate:
                 T_prev2 = T_prev
@@ -406,12 +456,15 @@ class RGBDStitcher:
             fits.append(fit)
             Ts.append(T)
             scores.append(torch.stack([s1, s_best]))
+            iterations.append(steps)
         if fits:
-            self.last_fits = torch.stack(fits).cpu().numpy()
-            self.last_transforms = torch.stack(Ts).cpu().numpy()
-            self.last_scores = torch.stack(scores).cpu().numpy()
+            self.last_fits = to_host(torch.stack(fits)).numpy()
+            self.last_transforms = to_host(torch.stack(Ts)).numpy()
+            self.last_scores = to_host(torch.stack(scores)).numpy()
+            self.last_iterations = to_host(torch.stack(iterations)).numpy()
 
-        overflow = int(overflow)
+        overflow = int(to_host(overflow))
+        self.last_overflow = overflow
         if overflow > 0:
             warnings.warn(
                 f"stitcher model buffer overflowed by {overflow} voxels "

@@ -202,6 +202,12 @@ def test_readers_without_the_program(monkeypatch):
         assert read(metric, ctx) is None, metric
 
 
+# the stitch cell's metrics, appended after NEW
+STITCH = ["launches_per_frame.stitch", "device_idle.stitch",
+          "icp_idle.stitch", "icp_steps_per_frame.stitch",
+          "host_reads_per_frame.stitch"]
+
+
 def _manifest_tests():
     spec = importlib.util.spec_from_file_location(
         "perfcells_manifest_checks",
@@ -220,8 +226,10 @@ def test_manifest_accepts_the_new_entries(check):
     per_layer = {m["name"]: m for m in bench["per_layer"]}
     for name, cell in NEW.items():
         assert per_layer[name]["workloads"] == [cell]
-    # appended after the metrics the benchmark had
-    assert [m["name"] for m in bench["per_layer"][-len(NEW):]] == list(NEW)
+    # appended after the metrics the benchmark had, and followed only by
+    # the stitch cell's metrics
+    tail = list(NEW) + STITCH
+    assert [m["name"] for m in bench["per_layer"][-len(tail):]] == tail
 
 
 def test_stages_tool_on_a_small_plan_cell(monkeypatch, capsys):
