@@ -8,15 +8,18 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
   1. device   require a CUDA card; print nvidia-smi's name and power limit
   2. build    compile the CUDA kernels from reconplan_tpu_torch/csrc; print
               ptxas's registers, shared memory and spills of the K1, K2,
-              K3, K6 and refine kernels, their SASS instruction counts (K6:
-              the loads and adds of its step loop) and the occupancy
-              query's blocks per SM of K1 (depth and color), K3 and K6
-  3. kernels  K2, the refine (K7), K1 and K3 against their plain PyTorch
-              versions on the card, at the bench shapes (512^3, one 8-frame
-              chunk of the bench scene with the real ids / fbits / live
-              count of the mask pipeline; the refine at the fuse cell's
-              cap of 4,096 candidates, with the host's microseconds a
-              call of the kernel's wrapper and of the plain chain; K1
+              K3, K6, refine and occupancy kernels, their SASS
+              instruction counts (K6: the loads and adds of its step
+              loop) and the occupancy query's blocks per SM of K1 (depth
+              and color), K3 and K6
+  3. kernels  K2, the refine (K7), the occupancy mip (K8), K1 and K3
+              against their plain PyTorch versions on the card, at the
+              bench shapes (512^3, one 8-frame chunk of the bench scene
+              with the real ids / fbits / live count of the mask pipeline;
+              the refine at the fuse cell's cap of 4,096 candidates and
+              the occupancy mip of the chunk, each with the host's
+              microseconds a call of the kernel's wrapper and of the plain
+              chain, and the plain chain's device time beside K8's; K1
               again with color on a 4-frame chunk; K3 with the
               host-compacted ids of the chunk padded to 512, and again
               padded to 4096 and to 8192 as the sharded path pads, the
@@ -168,15 +171,17 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
               reduced depth is printed with the default it replaces, and
               each tool's seconds
 Launch counters are zeroed just before phase 5 and read after phase 5 (one
-bench batch) and after phase 6 (K1, K2 and the refine), zeroed before and
-read after each of phases 7 and 8 (K3), 11 (every ablation arm) and 12
-(every probe arm), zeroed just before run_scan in phase 13 and read just
-after it (K1, K2 and the refine again), and zeroed at the start of phase
-17 and read at its end (K3: the bricked reference and the 5 launches of
-(c)), and zeroed at the start of phase 18 and read after bench_fusion,
+bench batch) and after phase 6 (K1, K2, the refine and the occupancy),
+zeroed before and read after each of phases 7 and 8 (K3), 11 (every
+ablation arm) and 12 (every probe arm), zeroed just before run_scan in
+phase 13 and read just after it (K1, K2, the refine and the occupancy
+again), and zeroed at the start of phase 17 and read at its end (K3: the
+bricked reference and the 5 launches of (c)), and zeroed at the start of
+phase 18 and read after bench_fusion,
 zeroed just before bench_grr and read just after it, and read at the
-phase's end (K1, K2 and the refine): each kernel must have been launched
-by its paths. The refine counts a call of its wrapper (three kernels).
+phase's end (K1, K2, the refine and the occupancy): each kernel must have
+been launched by its paths. The refine and the occupancy count a call of
+their wrappers (three kernels each).
 
 The line before the last is a JSON summary of the kernels. For each:
   ms, device_ms   the kernel's device time per launch: 20 launches
@@ -199,8 +204,8 @@ The line before the last is a JSON summary of the kernels. For each:
                   that only moves bytes can read above bound_share 1.
   launches        launches by the paths of this run; launches_per_batch
                   those of one 32-frame batch of the path that launches it
-                  (the device path for K1, K2 and the refine,
-                  launches_per_orbit for the banana orbit; the
+                  (the device path for K1, K2, the refine and the
+                  occupancy, launches_per_orbit for the banana orbit; the
                   host-compacted path for K3; 0 for the tools' kernels
                   K4-K6).
   library_ms      one PyTorch call computing the same function, or null
@@ -210,14 +215,16 @@ The line before the last is a JSON summary of the kernels. For each:
 K1's entry also has vs_old_design (the first design's device time over
 K1's, same call), arm_full_device_ms (the ablation arm `full` in the same
 turns), launches_per_scan (phase 13), launches_per_bench_fusion and
-launches_per_bench_grr (phase 18; K2's and the refine's entries too),
-K2's graph_floor_ms (a tiny torch op in a CUDA graph); the refine's entry
-(`refine_bits`, which replaces no TPU kernel) has host_us and
-plain_host_us (the host's microseconds a call, issued back to back,
-untraced), its candidates and how many of them it tested; the ablation
-and probe entries give each arm's numbers under "arms", and at the top
-those of K5's `full`, K4's `smem_window` and the probe's `baseline`. The
-last line is the run's JSON status.
+launches_per_bench_grr (phase 18; K2's, the refine's and the occupancy's
+entries too), K2's graph_floor_ms (a tiny torch op in a CUDA graph); the
+refine's entry (`refine_bits`, which replaces no TPU kernel) has host_us
+and plain_host_us (the host's microseconds a call, issued back to back,
+untraced), its candidates and how many of them it tested; the occupancy's
+entry (`occupancy_bits`, which replaces no TPU kernel either) has host_us,
+plain_host_us and plain_device_ms (the plain chain in a CUDA graph, as
+device_ms); the ablation and probe entries give each arm's numbers under
+"arms", and at the top those of K5's `full`, K4's `smem_window` and the
+probe's `baseline`. The last line is the run's JSON status.
 """
 
 import json
@@ -357,6 +364,19 @@ def graph_ms(fn, n=20, replays=5):
     return statistics.median(times)
 
 
+def host_us(fn, reps=200):
+    """The host's microseconds a call, issued back to back, untraced; the
+    card is synchronised after the loop, not inside it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
 # f32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -450,6 +470,49 @@ def bound_fields(bound_pair, device_ms):
     b_ms, by = bound_pair
     return {"bound_ms": b_ms, "bound_by": by,
             "bound_share": b_ms / device_ms, "l2": "warm"}
+
+
+def occupancy_phase(depths):
+    """Phase 3's occupancy mip (K8) on one chunk of ``depths`` (F, H, W)
+    on the card: the kernel against the plain chain
+    (``tsdf_brick._build_depth_occupancy``), bit for bit, and both timed
+    alike: device ms (``graph_ms``), events ms and the host's microseconds
+    a call. The bound is two reads of the chunk's depths. Prints the
+    phase's line and returns the kernel's numbers, the plain chain's
+    device ms as ``plain_device_ms``."""
+    from reconplan_tpu_torch.ops import tsdf_brick as tb
+    from reconplan_tpu_torch.ops.kernels import occupancy_bits
+
+    F, H, W = depths.shape
+    cell = tb._occupancy_cell(H, W)
+    run = lambda: occupancy_bits(depths, 1000.0, 3.0, cell)  # noqa: E731
+
+    def plain():
+        return tb._build_depth_occupancy(depths, 1000.0, 3.0, cell)
+
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    for name, g, w in zip(("occ0", "occ1", "binp"), got, want):
+        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+            raise AssertionError(f"occupancy {name} differs from the plain "
+                                 f"version on {(g != w).sum().item()} words")
+    # equal bit for bit, checked above
+    k8 = {"max_abs_err": 0, "events_ms": events_ms(run),
+          "device_ms": graph_ms(run),
+          "plain_ms": events_ms(plain), "plain_device_ms": graph_ms(plain),
+          "host_us": host_us(run), "plain_host_us": host_us(plain)}
+    k8.update(bound_fields(bound(2 * depths.numel() * 4, 0),
+                           k8["device_ms"]))
+    phase("kernels", f"occupancy_bits: planes and binp identical to the "
+          f"plain version on {F} frames of {W}x{H}, cell {cell} "
+          f"({(got[0] != 0).sum().item()} of {got[0].numel()} cells set) | "
+          f"device {k8['device_ms']:.5f} ms a call of 3 launches (bound "
+          f"{k8['bound_ms']:.5f}, {k8['bound_by']}), events "
+          f"{k8['events_ms']:.4f} | plain device "
+          f"{k8['plain_device_ms']:.5f}, events {k8['plain_ms']:.4f} ms | "
+          f"host {k8['host_us']:.1f} us a call, plain "
+          f"{k8['plain_host_us']:.1f}")
+    return k8
 
 
 def _fmt(x, spec=".4f"):
@@ -864,8 +927,9 @@ def parallel_phase(card, frames):
 def benchmarks_phase(card):
     """Phase 18: every tool of ``reconplan_tpu_torch/benchmarks/`` that
     the earlier phases do not run, on the card through its ``main``, each
-    with its check. Returns K2's, the refine's and K1's launches in the
-    phase, in the ``bench_fusion`` run and in the ``bench_grr`` run."""
+    with its check. Returns the launches of K2, the refine, the occupancy
+    and K1 in the phase, in the ``bench_fusion`` run and in the
+    ``bench_grr`` run."""
     import tempfile
 
     from reconplan_tpu_torch.benchmarks import (
@@ -874,7 +938,7 @@ def benchmarks_phase(card):
         expand_coverage, refine_roadmap)
     from reconplan_tpu_torch.io.meshio import save_ply
     from reconplan_tpu_torch.ops.kernels import (
-        active_mask, brick_integrate, refine_bits)
+        active_mask, brick_integrate, occupancy_bits, refine_bits)
     from reconplan_tpu_torch.ops.nn import _smallest, se3_knn, se3_pairwise
 
     t_phase = time.perf_counter()
@@ -890,12 +954,14 @@ def benchmarks_phase(card):
     def kernel_launches():
         return {"active_mask": active_mask.launches,
                 "brick_integrate": brick_integrate.launches,
-                "refine_bits": refine_bits.launches}
+                "refine_bits": refine_bits.launches,
+                "occupancy_bits": occupancy_bits.launches}
 
     def set_launches(counts):
         active_mask.launches = counts["active_mask"]
         brick_integrate.launches = counts["brick_integrate"]
         refine_bits.launches = counts["refine_bits"]
+        occupancy_bits.launches = counts["occupancy_bits"]
 
     set_launches(dict.fromkeys(kernel_launches(), 0))
 
@@ -1021,7 +1087,7 @@ def benchmarks_phase(card):
             raise AssertionError(f"bench_grr: {row}, launches {per_grr}")
         phase("benchmarks", f"bench_grr at 40 roadmap nodes (a reduced "
               f"depth; default 200), 500 waypoints, 16 pictures, 256^3: "
-              + json.dumps(row) + f" | K2 / K1 / refine launches "
+              + json.dumps(row) + f" | K2 / K1 / refine / occupancy launches "
               f"{json.dumps(per_grr)} | {seconds['bench_grr']:.1f} s")
         mesh = os.path.join(tmp, "fused_mesh.ply")
         save_ply(mesh, triangles=tris.cpu().numpy())
@@ -1113,7 +1179,7 @@ def main():
         active_mask, active_mask_reference, brick_ablate,
         brick_ablate_reference, brick_integrate, brick_integrate_fixed,
         brick_integrate_fixed_reference, brick_integrate_reference, build,
-        gather_probe, refine_bits)
+        gather_probe, occupancy_bits, refine_bits)
     from reconplan_tpu_torch.ops.kernels.brick_ablate import (
         ARMS, occupancy as ablate_occupancy_query)
     from reconplan_tpu_torch.ops.kernels.brick_integrate import occupancy
@@ -1144,7 +1210,7 @@ def main():
         if name.startswith(("brick_integrate_kernel", "active_mask_kernel",
                             "brick_integrate_fixed_kernel",
                             "gather_probe_kernel", "brick_ablate_",
-                            "refine_")):
+                            "refine_", "occupancy_")):
             phase("build", f"ptxas {name}: {u.get('registers')} registers, "
                   f"{u.get('smem_bytes')} B smem, spill stores "
                   f"{u.get('spill_stores')} B, loads {u.get('spill_loads')} B")
@@ -1248,18 +1314,6 @@ def main():
                 f"refine bits differ from {name} on "
                 f"{(refined.cpu() != ref.cpu()).sum().item()} bricks")
 
-    def host_us(fn, reps=200):
-        """The host's microseconds a call, issued back to back, untraced;
-        the card is synchronised after the loop, not inside it."""
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        return (t1 - t0) / reps * 1e6
-
     n_cand = int((bits != 0).sum().item())
     tested = min(cap, n_cand)
     k7 = {"max_abs_err": (refined.long() - refined_ref.long()).abs()
@@ -1278,6 +1332,9 @@ def main():
           f"{k7['bound_ms']:.5f}, {k7['bound_by']}), events "
           f"{k7['events_ms']:.4f}, plain {k7['plain_ms']:.4f} ms | host "
           f"{k7['host_us']:.1f} us a call, plain {k7['plain_host_us']:.1f}")
+
+    # the occupancy mip at the fuse cell's shapes: 8 frames of 640x480
+    k8 = occupancy_phase(d8)
 
     def k1_compare(n_frames, colors, rgb):
         """K1 against its plain version on a chunk of the bench scene;
@@ -1431,6 +1488,7 @@ def main():
     active_mask.launches = 0
     brick_integrate.launches = 0
     refine_bits.launches = 0
+    occupancy_bits.launches = 0
     grid = tb.make_brick_grid((N,) * 3, ORIGIN, VOXEL, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1443,7 +1501,8 @@ def main():
         raise AssertionError("bench grid is empty or not finite")
     per_batch = {"active_mask": active_mask.launches,
                  "brick_integrate": brick_integrate.launches,
-                 "refine_bits": refine_bits.launches}
+                 "refine_bits": refine_bits.launches,
+                 "occupancy_bits": occupancy_bits.launches}
     phase("bench", f"32 frames 640x480 -> {N}^3: n_active {int(n_active)}, "
           f"{32 / dt:.1f} frames/s cold-grid wall clock "
           f"(host clock, one batch) | {card}")
@@ -1479,7 +1538,8 @@ def main():
     times["extract_s"] = time.perf_counter() - t0
     launches = {"active_mask": active_mask.launches,
                 "brick_integrate": brick_integrate.launches,
-                "refine_bits": refine_bits.launches}
+                "refine_bits": refine_bits.launches,
+                "occupancy_bits": occupancy_bits.launches}
     per_orbit = {k: v - per_batch[k] for k, v in launches.items()}
     if len(tris) == 0:
         raise AssertionError("banana mesh has no triangles")
@@ -1832,6 +1892,7 @@ def main():
     active_mask.launches = 0
     brick_integrate.launches = 0
     refine_bits.launches = 0
+    occupancy_bits.launches = 0
     with tempfile.TemporaryDirectory() as out:
         t0 = time.perf_counter()
         scan = run_scan(roadmap_dir=roadmap, n_waypoints=n_scan, n_images=12,
@@ -1840,7 +1901,8 @@ def main():
         scan_s = time.perf_counter() - t0
         per_scan = {"active_mask": active_mask.launches,
                     "brick_integrate": brick_integrate.launches,
-                    "refine_bits": refine_bits.launches}
+                    "refine_bits": refine_bits.launches,
+                    "occupancy_bits": occupancy_bits.launches}
         files = sorted(os.listdir(out))
         with open(os.path.join(out, "ctraj.txt")) as f:
             entries = re.findall(r"^[^,\n]+,(None|\[[^\]]*\])", f.read(),
@@ -2272,6 +2334,17 @@ def main():
               launches_per_bench_grr=per_grr["refine_bits"],
               **{k: k7[k] for k in ("host_us", "plain_host_us",
                                     "candidates", "tested")}),
+        entry("occupancy_bits", "occupancy_bits.cu",
+              "no TPU kernel: the XLA occupancy mip, "
+              "reconplan_tpu/ops/tsdf_brick.py:215", k8,
+              launches=launches["occupancy_bits"],
+              launches_per_batch=per_batch["occupancy_bits"],
+              launches_per_orbit=per_orbit["occupancy_bits"],
+              launches_per_scan=per_scan["occupancy_bits"],
+              launches_per_bench_fusion=per_fusion["occupancy_bits"],
+              launches_per_bench_grr=per_grr["occupancy_bits"],
+              **{k: k8[k] for k in ("host_us", "plain_host_us",
+                                    "plain_device_ms")}),
         entry("brick_integrate_fixed", "brick_integrate_fixed.cu",
               "reconplan_tpu/ops/tsdf_brick.py:503", k3,
               launches=launches["brick_integrate_fixed"],

@@ -8,7 +8,7 @@ bench scene (``reconplan_tpu_torch.bench``: 32 frames of 640x480, 512^3,
 (a) ``full_pipeline_ms``: ``integrate_frames_bricked_device``.
 (b) ``mask_pipeline_ms``: ``chunk_active_set`` for the 4 chunks, and its
     stages, the functions it calls in order, each timed alone on the
-    previous stage's outputs: ``mask_occ_ms`` (``_build_depth_occupancy``),
+    previous stage's outputs: ``mask_occ_ms`` (``depth_occupancy``),
     ``mask_bits_ms`` (K2 ``active_mask``), ``mask_refine_ms``
     (``refine_frame_bits``) and ``mask_argsort_ms`` (``compact_active``:
     the stable-argsort ``compact_ids`` and the frame-bit gather). The TPU
@@ -188,7 +188,7 @@ def run(reps=5, inner=3, log=sys.stderr):
                                     MAX_ACTIVE, nb) for d, T in chunks]
 
     def occ_stage(_=None):
-        return [tb._build_depth_occupancy(d, DEPTH_SCALE, DEPTH_MAX, cell)
+        return [tb.depth_occupancy(d, DEPTH_SCALE, DEPTH_MAX, cell)
                 for d, _ in chunks]
 
     occ = occ_stage()

@@ -10,12 +10,14 @@ PyTorch versions and launch counters.
  K4/5  ``brick_ablate``          ``benchmarks/profile_brick.py:320`` / ``:75``
  K6    ``gather_probe``          ``benchmarks/probe_sublane_ops.py:35``
  K7    ``refine_bits``           no kernel: XLA ops, ``tsdf_brick.py:431``
+ K8    ``occupancy_bits``        no kernel: XLA ops, ``tsdf_brick.py:215``
 =====  ========================  ===================================
 
 K1-K3 replace TPU kernels of ``reconplan_tpu/ops``, K4-K6 those of the
-repo's ``benchmarks/`` folder. K7 replaces the eager chain of the mask
-pipeline's refine; its plain version is
-``ops/tsdf_brick._exact_frame_bits_dilated``.
+repo's ``benchmarks/`` folder. K7 and K8 replace eager chains of the mask
+pipeline, the refine and the occupancy mip; their plain versions are
+``ops/tsdf_brick._exact_frame_bits_dilated`` and
+``ops/tsdf_brick._build_depth_occupancy``.
 """
 
 from reconplan_tpu_torch.ops.kernels.active_mask import (
@@ -38,6 +40,7 @@ from reconplan_tpu_torch.ops.kernels.gather_probe import (
     gather_probe,
     gather_probe_reference,
 )
+from reconplan_tpu_torch.ops.kernels.occupancy_bits import occupancy_bits
 from reconplan_tpu_torch.ops.kernels.refine_bits import refine_bits
 
 __all__ = [
@@ -51,5 +54,6 @@ __all__ = [
     "brick_integrate_reference",
     "gather_probe",
     "gather_probe_reference",
+    "occupancy_bits",
     "refine_bits",
 ]

@@ -58,6 +58,7 @@ _SIGNATURES = {
     "gather_probe_launch": [_I] + [_P] * 2 + [_I] * 6 + [_P],
     "gather_probe_occupancy": [_I, _P, _P],
     "refine_bits_launch": [_P] * 7 + [_I] * 7 + [_F] * 8 + [_P],
+    "occupancy_bits_launch": [_P] * 5 + [_I] * 5 + [_F] * 2 + [_P],
 }
 
 
@@ -196,19 +197,24 @@ def sass_counts(names=("brick_integrate_kernel", "active_mask_kernel"),
 
 
 def _kernel_name(mangled: str) -> str:
-    """``..._4cd9310922brick_integrate_kernelILb0ELi4EEEv...`` ->
-    ``brick_integrate_kernel<0,4>``: the kernel's name and its integer
-    and bool template arguments. A length prefix may follow other digits
-    (``...0922brick...``), so each tail of a digit run is tried."""
-    for m in re.finditer(r"\d+", mangled):
-        for i in range(len(m.group())):
-            end = m.end() + int(m.group()[i:])
-            ident = mangled[m.end():end]
-            if ident.endswith("_kernel"):
-                targs = re.match(r"I((?:L[a-z]+\d+E)+)E", mangled[end:])
-                args = re.findall(r"(\d+)E", targs.group(1)) if targs else []
-                return ident + (f"<{','.join(args)}>" if args else "")
-    return mangled
+    """``_ZN12_GLOBAL__N_122brick_integrate_kernelILb0ELi4EEEv...`` ->
+    ``brick_integrate_kernel<0,4>``: the last name of the mangled (nested)
+    name, read by its length prefixes, and its integer and bool template
+    arguments. The anonymous namespace's name may hold a hash whose digits
+    look like a length prefix, so the names are read in turn from the
+    start. Anything else comes back as it is."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    i, name = (3 if mangled.startswith("_ZN") else 2), None
+    while length := re.match(r"\d+", mangled[i:]):
+        start = i + length.end()
+        i = start + int(length.group())
+        name = mangled[start:i]
+    if name is None or not name.endswith("_kernel"):
+        return mangled
+    targs = re.match(r"I((?:L[a-z]+\d+E)+)E", mangled[i:])
+    args = re.findall(r"(\d+)E", targs.group(1)) if targs else []
+    return name + (f"<{','.join(args)}>" if args else "")
 
 
 def _run_all(cmds) -> list[str]:

@@ -7,9 +7,10 @@ loop of ``integrate_frames_bricked_device``, which hands the compacted
 bricks to K1; and the host-compacted path ``integrate_frames_bricked``
 (centre-sample mask -> numpy compaction -> K3). The kernels live in
 ``ops/kernels``: CUDA C++ for CUDA tensors, their plain PyTorch versions
-for CPU tensors. The refine's plain version,
-:func:`_exact_frame_bits_dilated`, lives here; :func:`refine_frame_bits`
-launches its kernel on CUDA tensors.
+for CPU tensors. The plain versions of the occupancy mip and the refine,
+:func:`_build_depth_occupancy` and :func:`_exact_frame_bits_dilated`, live
+here; :func:`depth_occupancy` and :func:`refine_frame_bits` launch their
+kernels on CUDA tensors.
 
 Memory layout: the volume lives as bricked arrays ``(NB + 1, 8, 128)``
 (one row per 8x8x16-voxel brick: sublane = local z, lane = local y*16 +
@@ -39,6 +40,7 @@ from reconplan_tpu_torch.ops.kernels.brick_integrate import brick_integrate
 from reconplan_tpu_torch.ops.kernels.brick_integrate_fixed import (
     brick_integrate_fixed,
 )
+from reconplan_tpu_torch.ops.kernels.occupancy_bits import occupancy_bits
 from reconplan_tpu_torch.ops.kernels.refine_bits import (
     band as refine_band,
     check_frames,
@@ -366,7 +368,7 @@ def chunk_active_set(d_chunk, T_chunk, intr, origin, brick_dims, voxel_size,
     occ_cell = _occupancy_cell(Hd, Wd)
     if occ_cell is not None:
         with span("tsdf.occupancy"):
-            occ0, occ1, binp = _build_depth_occupancy(
+            occ0, occ1, binp = depth_occupancy(
                 d_chunk, depth_scale, depth_max, occ_cell)
         with span("tsdf.k2"):
             # K2: conservative per-frame occupancy superset
@@ -390,6 +392,21 @@ def chunk_active_set(d_chunk, T_chunk, intr, origin, brick_dims, voxel_size,
         bits = torch.where(mask, all_frames, 0).to(torch.int32)
     with span("tsdf.compact"):
         return compact_active(bits, max_active, nb_scratch)
+
+
+def depth_occupancy(depths, depth_scale=1000.0, depth_max=3.0, mip_cell=8,
+                    mip_rounds=4):
+    """The occupancy stage of :func:`chunk_active_set`: the two dilated mip
+    planes and the bin parameters of :func:`_build_depth_occupancy`.
+
+    CUDA tensors launch the occupancy kernel (``ops/kernels/occupancy_bits``,
+    counted in ``tsdf.occupancy_fused``); CPU tensors take the plain
+    version, :func:`_build_depth_occupancy`."""
+    args = (depths, depth_scale, depth_max, mip_cell, mip_rounds)
+    if depths.device.type == "cpu":
+        return _build_depth_occupancy(*args)
+    count("tsdf.occupancy_fused")
+    return occupancy_bits(*args)
 
 
 def refine_frame_bits(bits, d_chunk, T_chunk, intr, origin, brick_dims,

@@ -9,6 +9,9 @@ kernel is in ``test_torch_brick_k1.py``; the CUDA kernels against their
 plain versions in ``test_torch_cuda.py`` (on the card).
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +24,13 @@ from reconplan_tpu_torch.ops.kernels import (
     active_mask,
     active_mask_reference,
     brick_integrate,
+    occupancy_bits,
     refine_bits,
+)
+from reconplan_tpu_torch.ops.kernels.occupancy_bits import (
+    MAX_ROUNDS,
+    MAX_WIDTH,
+    PARTIALS,
 )
 from reconplan_tpu_torch.utils import profiling
 from test_tsdf_marching import make_sphere_depths
@@ -98,6 +107,40 @@ def test_build_depth_occupancy_bitexact(scene):
     assert_bits_match(occ_t[1], occ_j[1])
     np.testing.assert_array_equal(occ_t[2].numpy(), np.asarray(occ_j[2]))
     assert (np.asarray(occ_j[0]) != 0).any()
+
+
+def test_depth_occupancy_takes_the_plain_version_on_cpu(scene):
+    """On CPU tensors the occupancy stage is the plain chain, alone and
+    inside ``chunk_active_set``: no kernel call, no
+    ``tsdf.occupancy_fused``; the kernel's wrapper refuses CPU tensors."""
+    d = t(scene["depths"])
+    bd = _brick_dims(scene["dims"])
+    with profiling.recording() as rec:
+        got = tb.depth_occupancy(d, 1000.0, 3.0, 8)
+        tb.chunk_active_set(d, t(scene["w2c"]), tuple(map(f32, scene["K"])),
+                            t(ORIGIN, torch.float32), bd, scene["vox"],
+                            scene["trunc"], 8192, bd[0] * bd[1] * bd[2])
+    want = tb._build_depth_occupancy(d, 1000.0, 3.0, 8)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[0] != 0).any()
+    with pytest.raises(ValueError, match="device"):
+        occupancy_bits(d, 1000.0, 3.0, 8)
+    assert occupancy_bits.launches == 0
+    assert "tsdf.occupancy_fused" not in rec.counters
+    assert rec.counters == {}
+
+
+def test_occupancy_wrapper_sizes_what_the_kernel_expects():
+    """The wrapper's scratch and limits are the kernel's own constants:
+    ``PARTIALS`` partial minima and maxima, and the dilation's rows in
+    static shared memory (``MAX_WIDTH`` cells across, ``MAX_ROUNDS``)."""
+    src = (Path(tb.__file__).parents[1] / "csrc" /
+           "occupancy_bits.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kPartials"]) == PARTIALS
+    assert int(consts["kMaxWidth"]) == MAX_WIDTH
+    assert int(consts["kMaxRounds"]) == MAX_ROUNDS
 
 
 def _mask_inputs(scene):

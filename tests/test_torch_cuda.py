@@ -30,6 +30,7 @@ from reconplan_tpu_torch.ops.kernels import (
     brick_integrate_reference,
     gather_probe,
     gather_probe_reference,
+    occupancy_bits,
     refine_bits,
 )
 from reconplan_tpu_torch.ops.kernels.active_mask import MIP_CELLS
@@ -609,6 +610,7 @@ def test_chunk_active_set_on_the_card_is_its_stages_in_order(chunk,
         got = tb.chunk_active_set(d, T, intr, origin, bd, VOX, trunc,
                                   max_active, nb)
     assert rec.counters["tsdf.refine_fused"] == 1
+    assert rec.counters["tsdf.occupancy_fused"] == 1
     occ = tb._build_depth_occupancy(d, 1000.0, 3.0, 8)
     bits = active_mask(bd, origin, VOX, trunc, *occ, T, *intr, mip_cell=8)
     bits = bits & tb._exact_frame_bits_dilated(
@@ -632,6 +634,131 @@ def test_refine_wrapper_refuses_what_it_cannot_take(card):
         refine_bits(bits, d, T.transpose(1, 2), origin, WIDE_VOX,
                     5 * WIDE_VOX, intr, REFINE_BD, 4096)
     assert refine_bits.launches == before
+
+
+# --- the occupancy mip (occupancy_bits): frames, cells, edge depths, wrap --
+
+
+def _occupancy_equals_plain(d, mip_cell, mip_rounds=4):
+    """The kernel's (occ0, occ1, binp) against the plain version's, bit
+    for bit (binp by its f32 words); the kernel counted once. Returns the
+    plain planes."""
+    before = occupancy_bits.launches
+    got = occupancy_bits(d, 1000.0, 3.0, mip_cell, mip_rounds)
+    torch.cuda.synchronize()
+    assert occupancy_bits.launches == before + 1
+    want = tb._build_depth_occupancy(d, 1000.0, 3.0, mip_cell, mip_rounds)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    return want
+
+
+@pytest.mark.parametrize("mip_cell", MIP_CELLS)
+@pytest.mark.parametrize("n_frames", [1, 4, 8, 31])
+def test_occupancy_equals_plain(card, n_frames, mip_cell):
+    """The sphere frames at 128x256 (planes of 16x32, 8x16 and 4x8 cells,
+    the last two smaller than the 9x9 box in one axis or both)."""
+    depths, _, _ = make_frames(n_frames, H=128, W=256, fx=300.0, fy=300.0)
+    occ0, occ1, _ = _occupancy_equals_plain(
+        torch.as_tensor(depths, device=card), mip_cell)
+    assert (occ0 != 0).any() and (occ1 != 0).any()
+
+
+def _sparse_frames(card, n_frames, H, W, values, seed=3):
+    """Zero frames with ``values`` (mm) at random pixels."""
+    g = torch.Generator().manual_seed(seed)
+    d = torch.zeros(n_frames * H * W)
+    d[torch.randperm(d.numel(), generator=g)[:len(values)]] = torch.tensor(
+        values, dtype=torch.float32)
+    return d.reshape(n_frames, H, W).to(card)
+
+
+@pytest.mark.parametrize("mip_cell", MIP_CELLS)
+def test_occupancy_without_a_valid_pixel(card, mip_cell):
+    """Every depth out of range (0, negative, at and past depth_max, inf,
+    NaN): the range's min and max are not finite and fall back to 0."""
+    d = _sparse_frames(card, 3, 64, 96, [-5.0, 3000.0, 4500.0,
+                                         float("inf"), float("nan")])
+    occ0, occ1, binp = _occupancy_equals_plain(d, mip_cell)
+    assert not (occ0.any() or occ1.any())
+    assert binp.tolist() == [np.float32(-0.002), np.float32(0.002)]
+
+
+def test_occupancy_of_a_single_valid_pixel(card):
+    d = _sparse_frames(card, 4, 96, 128, [700.0, 3000.0])
+    occ0, occ1, binp = _occupancy_equals_plain(d, 8)
+    assert binp[1].item() == np.float32(0.002)
+    assert (occ0 != 0).sum() == 81 and not occ1.any()
+
+
+def test_occupancy_at_depth_max_and_the_last_bin(card):
+    """gmin falls in bin 0, gmax (one depth under depth_max) in bin 63,
+    bit 31 of the second plane: the i32 sign; depths at depth_max are out."""
+    d = _sparse_frames(card, 2, 96, 128, [500.0, 2999.0] + [3000.0] * 8
+                       + [1700.0] * 4)
+    occ0, occ1, _ = _occupancy_equals_plain(d, 8)
+    assert (occ0 & 1).any() and (occ1 < 0).any()
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 4])
+@pytest.mark.parametrize("hw", [(8, 8), (16, 24), (40, 56), (136, 16)])
+def test_occupancy_box_wraps_around(card, hw, rounds):
+    """Planes of 1x1, 2x3, 5x7 and 17x2 cells (the 17 rows across three of
+    the dilation's row tiles), smaller than the box on some axis, with a
+    few valid pixels: the modulo box equals the iterated rolls."""
+    d = _sparse_frames(card, 3, *hw, [600.0, 900.0, 1200.0, 2500.0])
+    occ0, _, _ = _occupancy_equals_plain(d, 8, rounds)
+    assert occ0.any()
+
+
+def test_occupancy_wrapper_refuses_what_it_cannot_take(card):
+    d = torch.zeros((2, 64, 64), device=card)
+    before = occupancy_bits.launches
+    with pytest.raises(ValueError, match="mip_cell"):
+        occupancy_bits(d, mip_cell=4)
+    with pytest.raises(ValueError, match="mip_cell"):
+        occupancy_bits(torch.zeros((2, 60, 64), device=card), mip_cell=8)
+    with pytest.raises(ValueError, match="cells across"):
+        occupancy_bits(torch.zeros((1, 8, 8 * 129), device=card))
+    with pytest.raises(ValueError, match="rounds"):
+        occupancy_bits(d, mip_rounds=17)
+    with pytest.raises(ValueError, match="depths"):
+        occupancy_bits(d.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        occupancy_bits(d.transpose(1, 2))
+    assert occupancy_bits.launches == before
+
+
+def test_chunk_active_set_at_the_fuse_cells_shape(card):
+    """512^3, one 8-frame chunk of 640x480 bench frames at the fuse cell's
+    max_active: ``chunk_active_set`` (the occupancy and refine kernels,
+    each counted once) returns the plain chain's ids, fbits and counts."""
+    depths, poses, K = make_frames(8)
+    d = torch.as_tensor(depths, device=card)
+    T = torch.linalg.inv(torch.as_tensor(poses, device=card)).contiguous()
+    intr = tuple(float(np.float32(v)) for v in K)
+    grid = tb.make_brick_grid((bench.N,) * 3, bench.ORIGIN, bench.VOXEL,
+                              device=card)
+    bd, nb, max_active = grid.brick_dims, grid.sdf.shape[0] - 1, 32768
+    args = (grid.origin, bd, bench.VOXEL, grid.trunc)
+    before = occupancy_bits.launches
+    with profiling.recording() as rec:
+        got = tb.chunk_active_set(d, T, intr, *args, max_active, nb)
+    torch.cuda.synchronize()
+    assert occupancy_bits.launches == before + 1
+    assert rec.counters == {"tsdf.occupancy_fused": 1,
+                            "tsdf.refine_fused": 1}
+    occ = _occupancy_equals_plain(d, 8)
+    bits = active_mask(bd, grid.origin, bench.VOXEL, grid.trunc, *occ, T,
+                       *intr, mip_cell=8)
+    bits = bits & tb._exact_frame_bits_dilated(
+        bits, d, T, grid.origin, bench.VOXEL, grid.trunc, intr, bd, 4096,
+        1000.0, 3.0)
+    want = tb.compact_active(bits, max_active, nb)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[2].item()) > 0
 
 
 # --- K3: padding anywhere, list lengths around one wave, streams ------------

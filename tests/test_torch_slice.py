@@ -197,6 +197,25 @@ def test_build_runs_one_nvcc_per_source_then_links(monkeypatch, tmp_path):
         build.build()
 
 
+@pytest.mark.parametrize("mangled, name", [
+    # a hash in the anonymous namespace ends in digits ("...630d8b90") that
+    # read as a length prefix of "d8b9023occupancy_dilate_kernel"
+    ("_ZN50_GLOBAL__N__c3a181b3_17_occupancy_bits_cu_630d8b9023occupancy_"
+     "dilate_kernelEPKiPiiiiii", "occupancy_dilate_kernel"),
+    ("_ZN50_GLOBAL__N__c3a181b3_17_occupancy_bits_cu_630d8b9022occupancy_"
+     "cells_kernelILi32EEEvPKfS2_PiPfiiiiiff", "occupancy_cells_kernel<32>"),
+    ("_ZN12_GLOBAL__N_122brick_integrate_kernelILb0ELi4EEEvPKf",
+     "brick_integrate_kernel<0,4>"),
+    ("_ZN2at6native4rollEv", "_ZN2at6native4rollEv"),
+    ("refine_count_kernel", "refine_count_kernel"),
+])
+def test_kernel_names_are_read_by_their_length_prefixes(mangled, name):
+    """ptxas's and cuobjdump's mangled names -> the kernel's name and its
+    template arguments, as ``resource_usage`` and ``sass_counts`` key
+    them; names that are not kernels come back as they are."""
+    assert build._kernel_name(mangled) == name
+
+
 def test_fuse_frameset_autofits_the_grid(orbit):
     d, c, p, K = orbit
     pipe = tfusion.fuse_frameset(
