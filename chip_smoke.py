@@ -170,18 +170,16 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
               re-seed's DTW no worse than the roadmap seeds'). Each
               reduced depth is printed with the default it replaces, and
               each tool's seconds
-Launch counters are zeroed just before phase 5 and read after phase 5 (one
-bench batch) and after phase 6 (K1, K2, the refine and the occupancy),
-zeroed before and read after each of phases 7 and 8 (K3), 11 (every
-ablation arm) and 12 (every probe arm), zeroed just before run_scan in
-phase 13 and read just after it (K1, K2, the refine and the occupancy
-again), and zeroed at the start of phase 17 and read at its end (K3: the
-bricked reference and the 5 launches of (c)), and zeroed at the start of
-phase 18 and read after bench_fusion,
-zeroed just before bench_grr and read just after it, and read at the
-phase's end (K1, K2, the refine and the occupancy): each kernel must have
-been launched by its paths. The refine and the occupancy count a call of
-their wrappers (three kernels each).
+Launches are the program's counters, ``kernel.<wrapper>``, each read from
+a ``profiling.recording()`` around the region it counts: phase 5 (one
+bench batch) and phase 6 (K1, K2, the refine and the occupancy), each of
+phases 7 and 8 (K3), 11 (every ablation arm) and 12 (every probe arm),
+run_scan in phase 13 (K1, K2, the refine and the occupancy again), phase
+17's bricked reference and the 5 launches of its (c) (K3), and each tool
+run of phase 18, bench_fusion's and bench_grr's also alone (K1, K2, the
+refine and the occupancy). A phase's launches are the sum of its
+regions'. Each kernel must have been launched by its paths. The refine
+and the occupancy count a call of their wrappers (three kernels each).
 
 The line before the last is a JSON summary of the kernels. For each:
   ms, device_ms   the kernel's device time per launch: 20 launches
@@ -240,6 +238,9 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
+
+from perfcells.peaks import TSDF_VOXEL_FRAME_OPS, bound_s  # noqa: E402
+from reconplan_tpu_torch.utils import profiling  # noqa: E402
 
 BANANA = os.path.join(REPO, "data/objects/011_banana/tsdf/nontextured.ply")
 # the scan loop's scene (phase 13): where the object stands, its
@@ -321,6 +322,18 @@ def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
 
 
+# the wrappers of the device path's chunk, whose launches are counted
+FUSION_KERNELS = ("active_mask", "brick_integrate", "refine_bits",
+                  "occupancy_bits")
+K3_COUNTER = "kernel.brick_integrate_fixed"
+
+
+def launched(rec, names=FUSION_KERNELS, prefix="kernel."):
+    """{name: launches} of the counters ``<prefix><name>`` in a
+    ``profiling.recording()``."""
+    return {n: rec.counters.get(prefix + n, 0) for n in names}
+
+
 def load_golden():
     """The 500 golden UR10 configurations and their end-effector poses
     (position, quaternion), each line ``t,[numbers]``."""
@@ -377,16 +390,9 @@ def host_us(fn, reps=200):
     return (t1 - t0) / reps * 1e6
 
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
-# f32 operations/s outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# f32 operations of one voxel-frame of K1 (K3 and the ablation arms do the
-# same), counted in csrc/brick_integrate.cu: projection 18, z clamp 1, the
-# two pixel coordinates 6; depth / depth_scale, d - z, three tests, the
-# tsdf divide and clip 3, weight add, clamp and reciprocal 3, the average
-# 4, the empty test and the weight clamp 2 (42); color adds 4 a channel.
-K1_OPS, K1_COLOR_OPS = 42, 12
+# f32 operations color adds to one voxel-frame of K1 (TSDF_VOXEL_FRAME_OPS,
+# which K3 and the ablation arms do too): 4 a channel
+K1_COLOR_OPS = 12
 # f32 operations of one K2 (brick, frame) test, in csrc/active_mask.cu:
 # projection 18, z clamp 1, the two cell coordinates 6, the bin range 8,
 # the z test 1
@@ -427,11 +433,9 @@ def profiled(fn):
 
 
 def bound(nbytes, nops):
-    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    f32 operations over the f32 peak."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(bound_ms, bound_by): ``perfcells.peaks.bound_s`` in ms."""
+    seconds, by = bound_s(nbytes, nops)
+    return seconds * 1e3, by
 
 
 def k1_work(ids, fbits, n, T, intr, depths, origin, brick_dims, voxel):
@@ -463,7 +467,8 @@ def k1_bound(n, brick_frames, pixels, planes, color_ops, F):
     sampled = 2 if color_ops else 1
     nbytes = (n * planes * 4096 * 2 + n * 8 + pixels * 4 * sampled
               + F * 64)
-    return bound(nbytes, brick_frames * 1024 * (K1_OPS + color_ops))
+    return bound(nbytes, brick_frames * 1024
+                 * (TSDF_VOXEL_FRAME_OPS + color_ops))
 
 
 def bound_fields(bound_pair, device_ms):
@@ -475,20 +480,21 @@ def bound_fields(bound_pair, device_ms):
 def occupancy_phase(depths):
     """Phase 3's occupancy mip (K8) on one chunk of ``depths`` (F, H, W)
     on the card: the kernel against the plain chain
-    (``tsdf_brick._build_depth_occupancy``), bit for bit, and both timed
+    (``occupancy_bits_reference``), bit for bit, and both timed
     alike: device ms (``graph_ms``), events ms and the host's microseconds
     a call. The bound is two reads of the chunk's depths. Prints the
     phase's line and returns the kernel's numbers, the plain chain's
     device ms as ``plain_device_ms``."""
     from reconplan_tpu_torch.ops import tsdf_brick as tb
-    from reconplan_tpu_torch.ops.kernels import occupancy_bits
+    from reconplan_tpu_torch.ops.kernels import (
+        occupancy_bits, occupancy_bits_reference)
 
     F, H, W = depths.shape
     cell = tb._occupancy_cell(H, W)
     run = lambda: occupancy_bits(depths, 1000.0, 3.0, cell)  # noqa: E731
 
     def plain():
-        return tb._build_depth_occupancy(depths, 1000.0, 3.0, cell)
+        return occupancy_bits_reference(depths, 1000.0, 3.0, cell)
 
     got, want = run(), plain()
     torch.cuda.synchronize()
@@ -752,7 +758,6 @@ def parallel_phase(card, frames):
     from reconplan_tpu_torch.kin.ik import dls_ik_batch
     from reconplan_tpu_torch.ops import tsdf as tsdf_ops
     from reconplan_tpu_torch.ops import tsdf_brick as tb
-    from reconplan_tpu_torch.ops.kernels import brick_integrate_fixed
     from reconplan_tpu_torch.parallel import (
         gather_brick_grid, gather_grid, make_mesh, make_sharded_brick_grid,
         make_sharded_grid, sharded_ik_solve, sharded_integrate_frames,
@@ -761,7 +766,6 @@ def parallel_phase(card, frames):
     t_phase = time.perf_counter()
     dev = frames.depth.device
     mesh4 = make_mesh(devices=[dev] * 4)
-    brick_integrate_fixed.launches = 0
 
     def sync_s(fn):
         torch.cuda.synchronize()
@@ -859,16 +863,18 @@ def parallel_phase(card, frames):
           f"{sh_ms:.1f} ms (CUDA events)")
 
     # --- (c) a world of one under NCCL -----------------------------------
-    one_b, n_one = tb.integrate_frames_bricked(
-        tb.make_brick_grid((N,) * 3, ORIGIN, VOXEL, device=dev), d_all,
-        p_all, *K, frames_per_dispatch=32, dilate_active=False)
+    with profiling.recording() as rec:
+        one_b, n_one = tb.integrate_frames_bricked(
+            tb.make_brick_grid((N,) * 3, ORIGIN, VOXEL, device=dev), d_all,
+            p_all, *K, frames_per_dispatch=32, dilate_active=False)
+    k3_one = rec.counters.get(K3_COUNTER, 0)
     mask = tb.active_brick_mask(one_b.brick_dims, one_b.origin, VOXEL,
                                 one_b.trunc, d_all,
                                 torch.linalg.inv(p_all).contiguous(),
                                 *(float(np.float32(v)) for v in K))
-    k3_before = brick_integrate_fixed.launches
     lines = []
-    with tempfile.TemporaryDirectory() as tmp:
+    with (tempfile.TemporaryDirectory() as tmp,
+          profiling.recording() as rec):
         dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
                                 rank=0, world_size=1)
         try:
@@ -910,7 +916,7 @@ def parallel_phase(card, frames):
         finally:
             meshes = mesh = None  # they hold the group (parallel.mesh.Mesh)
             dist.destroy_process_group()
-    k3_group = brick_integrate_fixed.launches - k3_before
+    k3_group = rec.counters.get(K3_COUNTER, 0)
     if k3_group != 1 + 4:
         raise AssertionError(f"K3 launched {k3_group} times by the brick "
                              "path under NCCL, not 5")
@@ -921,15 +927,15 @@ def parallel_phase(card, frames):
           "tensors): the multi-rank path is held on the CPU by "
           "tests/test_torch_parallel_dist.py (two gloo processes of 4 "
           f"shards) | phase 17 {time.perf_counter() - t_phase:.1f} s")
-    return brick_integrate_fixed.launches
+    return k3_one + k3_group
 
 
 def benchmarks_phase(card):
     """Phase 18: every tool of ``reconplan_tpu_torch/benchmarks/`` that
     the earlier phases do not run, on the card through its ``main``, each
     with its check. Returns the launches of K2, the refine, the occupancy
-    and K1 in the phase, in the ``bench_fusion`` run and in the
-    ``bench_grr`` run."""
+    and K1 in the phase (the sum of its tool runs'), in the
+    ``bench_fusion`` run and in the ``bench_grr`` run."""
     import tempfile
 
     from reconplan_tpu_torch.benchmarks import (
@@ -937,38 +943,24 @@ def benchmarks_phase(card):
         diag_posefree, dtw_gap, eval_poisson_fidelity, eval_scan_coverage,
         expand_coverage, refine_roadmap)
     from reconplan_tpu_torch.io.meshio import save_ply
-    from reconplan_tpu_torch.ops.kernels import (
-        active_mask, brick_integrate, occupancy_bits, refine_bits)
     from reconplan_tpu_torch.ops.nn import _smallest, se3_knn, se3_pairwise
 
     t_phase = time.perf_counter()
-    seconds = {}
+    seconds, tool_launches = {}, {}
 
     def run(name, fn):
         t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
+        with profiling.recording() as rec:
+            out = fn()
+            torch.cuda.synchronize()
         seconds[name] = time.perf_counter() - t0
+        tool_launches[name] = launched(rec)
         return out
-
-    def kernel_launches():
-        return {"active_mask": active_mask.launches,
-                "brick_integrate": brick_integrate.launches,
-                "refine_bits": refine_bits.launches,
-                "occupancy_bits": occupancy_bits.launches}
-
-    def set_launches(counts):
-        active_mask.launches = counts["active_mask"]
-        brick_integrate.launches = counts["brick_integrate"]
-        refine_bits.launches = counts["refine_bits"]
-        occupancy_bits.launches = counts["occupancy_bits"]
-
-    set_launches(dict.fromkeys(kernel_launches(), 0))
 
     # (a) the banana orbit at full width: 32 frames of 640x480, 256^3 and
     # 512^3, REPS batches after a warm one
     rows = run("bench_fusion", bench_fusion.main)
-    per_fusion = kernel_launches()
+    per_fusion = tool_launches["bench_fusion"]
     ch = rows[-1]["chamfer_mm"]
     if rows[-1]["grid"] != 512 or ch is None or ch > 1.0:
         raise AssertionError(f"bench_fusion: Chamfer {ch} mm at 512^3 > 1.0")
@@ -1077,12 +1069,9 @@ def benchmarks_phase(card):
     with tempfile.TemporaryDirectory() as tmp:
         # (f) the closed loop from a 40-node roadmap, then the coverage
         # table of its mesh
-        before = kernel_launches()
-        set_launches(dict.fromkeys(before, 0))
         row, grr, tris = run("bench_grr", lambda: bench_grr.main(
             n_nodes=40))
-        per_grr = kernel_launches()
-        set_launches({k: before[k] + per_grr[k] for k in before})
+        per_grr = tool_launches["bench_grr"]
         if row["waypoints_solved"] < 490 or min(per_grr.values()) == 0:
             raise AssertionError(f"bench_grr: {row}, launches {per_grr}")
         phase("benchmarks", f"bench_grr at 40 roadmap nodes (a reduced "
@@ -1157,7 +1146,8 @@ def benchmarks_phase(card):
               f"{table[arm]['mean_dtw']:.4f})"
               for arm, got in gap.items())
           + f" | {seconds['dtw_gap']:.1f} s")
-    total = kernel_launches()
+    total = {k: sum(n[k] for n in tool_launches.values())
+             for k in FUSION_KERNELS}
     phase("benchmarks", f"phase 18 {time.perf_counter() - t_phase:.1f} s: "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     return total, per_fusion, per_grr
@@ -1179,7 +1169,8 @@ def main():
         active_mask, active_mask_reference, brick_ablate,
         brick_ablate_reference, brick_integrate, brick_integrate_fixed,
         brick_integrate_fixed_reference, brick_integrate_reference, build,
-        gather_probe, occupancy_bits, refine_bits)
+        gather_probe, occupancy_bits_reference, refine_bits,
+        refine_bits_reference)
     from reconplan_tpu_torch.ops.kernels.brick_ablate import (
         ARMS, occupancy as ablate_occupancy_query)
     from reconplan_tpu_torch.ops.kernels.brick_integrate import occupancy
@@ -1266,7 +1257,7 @@ def main():
     # prior state: frames 8-15 fused into the grid
     tb.integrate_frames_bricked_device(grid, d_all[8:16], p_all[8:16], *K)
     d8, T8 = d_all[:8], T_all[:8].contiguous()
-    occ0, occ1, binp = tb._build_depth_occupancy(d8, 1000.0, 3.0, 8)
+    occ0, occ1, binp = occupancy_bits_reference(d8, 1000.0, 3.0, 8)
     k2_args = (bd, grid.origin, VOXEL, trunc, occ0, occ1, binp, T8, *intr)
     bits = active_mask(*k2_args, mip_cell=8)
     bits_ref = active_mask_reference(*k2_args, mip_cell=8)
@@ -1300,12 +1291,12 @@ def main():
     k7_run = lambda: refine_bits(*k7_args)  # noqa: E731
 
     def k7_plain():
-        return bits & tb._exact_frame_bits_dilated(*k7_args)
+        return refine_bits_reference(*k7_args)
 
     refined, refined_ref = k7_run(), k7_plain()
-    refined_cpu = tb.refine_frame_bits(
-        bits.cpu(), d8.cpu(), T8.cpu(), intr, grid.origin.cpu(), bd, VOXEL,
-        trunc, cap)
+    refined_cpu = refine_bits(
+        bits.cpu(), d8.cpu(), T8.cpu(), grid.origin.cpu(), VOXEL, trunc, intr,
+        bd, cap)
     torch.cuda.synchronize()
     for name, ref in (("the plain version on the card", refined_ref),
                       ("the plain version on the CPU", refined_cpu)):
@@ -1460,7 +1451,7 @@ def main():
                             d8, grid.origin, bd, VOXEL)
     k3.update(bound_fields(bound(
         n_k3 * 2 * 4096 * 2 + len(ids_np) * 4 + k3_pix * 4 + 8 * 64,
-        k3_bf * 1024 * K1_OPS), k3["device_ms"]))
+        k3_bf * 1024 * TSDF_VOXEL_FRAME_OPS), k3["device_ms"]))
     phase("kernels", f"K3 brick_integrate_fixed (8 frames): sdf max err "
           f"{k3_err:.3g}, weight identical, {n_k3} bricks padded to "
           f"{len(ids_np)} | device {k3['device_ms']:.5f} ms a launch (bound "
@@ -1485,24 +1476,18 @@ def main():
           f"{small_err:.3g} on {same.sum().item()} voxels")
 
     # --- 5. the main path: bench scene --------------------------------------
-    active_mask.launches = 0
-    brick_integrate.launches = 0
-    refine_bits.launches = 0
-    occupancy_bits.launches = 0
     grid = tb.make_brick_grid((N,) * 3, ORIGIN, VOXEL, device=dev)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    grid, n_active = tb.integrate_frames_bricked_device(
-        grid, d_all, p_all, *K, max_active=MAX_ACTIVE)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    with profiling.recording() as rec:
+        t0 = time.perf_counter()
+        grid, n_active = tb.integrate_frames_bricked_device(
+            grid, d_all, p_all, *K, max_active=MAX_ACTIVE)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    per_batch = launched(rec)
     w = grid.weight
     if not torch.isfinite(grid.sdf).all() or w.max().item() <= 0:
         raise AssertionError("bench grid is empty or not finite")
-    per_batch = {"active_mask": active_mask.launches,
-                 "brick_integrate": brick_integrate.launches,
-                 "refine_bits": refine_bits.launches,
-                 "occupancy_bits": occupancy_bits.launches}
     phase("bench", f"32 frames 640x480 -> {N}^3: n_active {int(n_active)}, "
           f"{32 / dt:.1f} frames/s cold-grid wall clock "
           f"(host clock, one batch) | {card}")
@@ -1525,22 +1510,20 @@ def main():
                       poses=np.stack(fp), intrinsics=cam.intrinsics)
     torch.cuda.synchronize()
     times["render_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pipe = FusionPipeline(dims=(N,) * 3, origin=(-0.2, -0.2, -0.15),
-                          voxel_size=0.4 / (N - 1), with_color=True,
-                          engine="brick", device=dev)
-    pipe.integrate(frames)
-    torch.cuda.synchronize()
-    times["fuse_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    tris, cols = pipe.extract_mesh(with_colors=True)
-    torch.cuda.synchronize()
-    times["extract_s"] = time.perf_counter() - t0
-    launches = {"active_mask": active_mask.launches,
-                "brick_integrate": brick_integrate.launches,
-                "refine_bits": refine_bits.launches,
-                "occupancy_bits": occupancy_bits.launches}
-    per_orbit = {k: v - per_batch[k] for k, v in launches.items()}
+    with profiling.recording() as rec:
+        t0 = time.perf_counter()
+        pipe = FusionPipeline(dims=(N,) * 3, origin=(-0.2, -0.2, -0.15),
+                              voxel_size=0.4 / (N - 1), with_color=True,
+                              engine="brick", device=dev)
+        pipe.integrate(frames)
+        torch.cuda.synchronize()
+        times["fuse_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tris, cols = pipe.extract_mesh(with_colors=True)
+        torch.cuda.synchronize()
+        times["extract_s"] = time.perf_counter() - t0
+    per_orbit = launched(rec)
+    launches = {k: per_batch[k] + per_orbit[k] for k in FUSION_KERNELS}
     if len(tris) == 0:
         raise AssertionError("banana mesh has no triangles")
     if not (torch.isfinite(tris).all() and torch.isfinite(cols).all()
@@ -1556,14 +1539,14 @@ def main():
     if ch > 1e-3:
         raise AssertionError(f"banana Chamfer {ch * 1e3:.4f} mm > 1.0 mm")
     # --- 7. the host-compacted path: bench scene through K3 ---------------
-    brick_integrate_fixed.launches = 0
     grid = tb.make_brick_grid((N,) * 3, ORIGIN, VOXEL, device=dev)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    grid, n_bricked = tb.integrate_frames_bricked(grid, d_all, p_all, *K)
-    torch.cuda.synchronize()
-    dt_cold = time.perf_counter() - t0
-    k3_bricked = brick_integrate_fixed.launches
+    with profiling.recording() as rec:
+        t0 = time.perf_counter()
+        grid, n_bricked = tb.integrate_frames_bricked(grid, d_all, p_all, *K)
+        torch.cuda.synchronize()
+        dt_cold = time.perf_counter() - t0
+    k3_bricked = rec.counters.get(K3_COUNTER, 0)
     per_batch["brick_integrate_fixed"] = k3_bricked
     # Each brick path folds a subset of the frames into a voxel, and not
     # the same subset, so equal weights alone do not mean equal frames. A
@@ -1607,16 +1590,16 @@ def main():
     if max(counts) > per_shard:
         raise AssertionError(f"a shard would drop bricks: {counts} active, "
                              f"cap {per_shard}")
-    brick_integrate_fixed.launches = 0
     g_nbl = make_sharded_brick_grid(
         (N,) * 3, ORIGIN, VOXEL, mesh=make_mesh(devices=[dev] * shards))
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    g_nbl, n_sharded = sharded_integrate_frames_bricked(
-        g_nbl, d_all, p_all, *K, max_active_per_device=per_shard)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    k3_sharded = brick_integrate_fixed.launches
+    with profiling.recording() as rec:
+        t0 = time.perf_counter()
+        g_nbl, n_sharded = sharded_integrate_frames_bricked(
+            g_nbl, d_all, p_all, *K, max_active_per_device=per_shard)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    k3_sharded = rec.counters.get(K3_COUNTER, 0)
     gathered = gather_brick_grid(g_nbl)
     if not (int(n_sharded) == n_one and torch.equal(gathered.sdf, one.sdf)
             and torch.equal(gathered.weight, one.weight)):
@@ -1684,8 +1667,10 @@ def main():
                   "pr1_full")
     arm_bound = {
         **{arm: (k1["bound_ms"], k1["bound_by"]) for arm in as_k1_arms},
-        "one_row": bound(rows, k1["brick_frames"] * 1024 * K1_OPS),
-        "no_gather": bound(rows, k1["brick_frames"] * 1024 * K1_OPS),
+        "one_row": bound(rows, k1["brick_frames"] * 1024
+                         * TSDF_VOXEL_FRAME_OPS),
+        "no_gather": bound(rows, k1["brick_frames"] * 1024
+                           * TSDF_VOXEL_FRAME_OPS),
         "no_fbits": k1_bound(n_live, nf_bf, nf_pix, 2, 0, 8),
         "rw_only": bound(rows, 0),
     }
@@ -1726,13 +1711,12 @@ def main():
     del grid, k1_planes
 
     # --- 11. the stage split and ablation tool, end to end ----------------
-    for arm in ARMS:
-        brick_ablate.launches[arm] = 0
     t0 = time.perf_counter()
-    prof = profile_brick.run(reps=2, inner=2, log=sys.stdout)
+    with profiling.recording() as rec:
+        prof = profile_brick.run(reps=2, inner=2, log=sys.stdout)
     dt = time.perf_counter() - t0
     print(json.dumps(prof), flush=True)
-    ablate_launches = dict(brick_ablate.launches)
+    ablate_launches = launched(rec, ARMS, "kernel.brick_ablate.")
     bad = [k for k, v in prof.items() if k.endswith("_ms") and v is not None
            and not (math.isfinite(v) and v > 0)]
     if bad:
@@ -1747,10 +1731,9 @@ def main():
           f"{json.dumps(ablate_launches)}")
 
     # --- 12. the microprobe (K6) -------------------------------------------
-    for arm in gather_probe.launches:
-        gather_probe.launches[arm] = 0
-    probe = probe_sublane_ops.run()
-    probe_launches = dict(gather_probe.launches)
+    with profiling.recording() as rec:
+        probe = probe_sublane_ops.run()
+    probe_launches = launched(rec, PROBE_ARMS, "kernel.gather_probe.")
     # device times and the library yardstick on the probe's own input
     x = torch.as_tensor(np.random.default_rng(probe_sublane_ops.SEED).random(
         (PROBE_H, PROBE_W), dtype=np.float32), device=dev)
@@ -1889,20 +1872,14 @@ def main():
     if not os.path.isfile(os.path.join(roadmap, "resolution.npz")):
         raise AssertionError(f"no committed roadmap in {roadmap}")
     n_scan = 500
-    active_mask.launches = 0
-    brick_integrate.launches = 0
-    refine_bits.launches = 0
-    occupancy_bits.launches = 0
     with tempfile.TemporaryDirectory() as out:
         t0 = time.perf_counter()
-        scan = run_scan(roadmap_dir=roadmap, n_waypoints=n_scan, n_images=12,
-                        grid_dim=256, reconstruct="both", close_mesh="auto",
-                        close_depth=192, out_dir=out)
+        with profiling.recording() as rec:
+            scan = run_scan(roadmap_dir=roadmap, n_waypoints=n_scan,
+                            n_images=12, grid_dim=256, reconstruct="both",
+                            close_mesh="auto", close_depth=192, out_dir=out)
         scan_s = time.perf_counter() - t0
-        per_scan = {"active_mask": active_mask.launches,
-                    "brick_integrate": brick_integrate.launches,
-                    "refine_bits": refine_bits.launches,
-                    "occupancy_bits": occupancy_bits.launches}
+        per_scan = launched(rec)
         files = sorted(os.listdir(out))
         with open(os.path.join(out, "ctraj.txt")) as f:
             entries = re.findall(r"^[^,\n]+,(None|\[[^\]]*\])", f.read(),
@@ -2283,6 +2260,16 @@ def main():
                 "replaces": replaces, "ms": nums["device_ms"],
                 **{k: nums[k] for k in keys}, "library_ms": None, **extra}
 
+    def fusion_launches(name):
+        """A kernel of the device path: its launches in the run, and per
+        bench batch, orbit, planned scan, bench_fusion run and bench_grr
+        run."""
+        return {"launches": launches[name], **{
+            f"launches_per_{unit}": per[name] for unit, per in (
+                ("batch", per_batch), ("orbit", per_orbit),
+                ("scan", per_scan), ("bench_fusion", per_fusion),
+                ("bench_grr", per_grr))}}
+
     # K4 and K5 share one templated kernel; each arm goes under one entry
     # only (K4's `full2` is K5's `full`), and the first arm gives the
     # entry's own numbers
@@ -2298,21 +2285,11 @@ def main():
     print(json.dumps({"kernels": [
         entry("active_mask", "active_mask.cu",
               "reconplan_tpu/ops/tsdf_brick.py:278", k2,
-              launches=launches["active_mask"],
-              launches_per_batch=per_batch["active_mask"],
-              launches_per_orbit=per_orbit["active_mask"],
-              launches_per_scan=per_scan["active_mask"],
-              launches_per_bench_fusion=per_fusion["active_mask"],
-              launches_per_bench_grr=per_grr["active_mask"],
+              **fusion_launches("active_mask"),
               graph_floor_ms=k2["graph_floor_ms"]),
         entry("brick_integrate", "brick_integrate.cu",
               "reconplan_tpu/ops/tsdf_brick.py:682", k1,
-              launches=launches["brick_integrate"],
-              launches_per_batch=per_batch["brick_integrate"],
-              launches_per_orbit=per_orbit["brick_integrate"],
-              launches_per_scan=per_scan["brick_integrate"],
-              launches_per_bench_fusion=per_fusion["brick_integrate"],
-              launches_per_bench_grr=per_grr["brick_integrate"],
+              **fusion_launches("brick_integrate"),
               live_bricks=k1["live_bricks"],
               brick_frames=k1["brick_frames"],
               vs_old_design=k1["vs_old_design"],
@@ -2326,23 +2303,13 @@ def main():
         entry("refine_bits", "refine_bits.cu",
               "no TPU kernel: the XLA refine, "
               "reconplan_tpu/ops/tsdf_brick.py:431", k7,
-              launches=launches["refine_bits"],
-              launches_per_batch=per_batch["refine_bits"],
-              launches_per_orbit=per_orbit["refine_bits"],
-              launches_per_scan=per_scan["refine_bits"],
-              launches_per_bench_fusion=per_fusion["refine_bits"],
-              launches_per_bench_grr=per_grr["refine_bits"],
+              **fusion_launches("refine_bits"),
               **{k: k7[k] for k in ("host_us", "plain_host_us",
                                     "candidates", "tested")}),
         entry("occupancy_bits", "occupancy_bits.cu",
               "no TPU kernel: the XLA occupancy mip, "
               "reconplan_tpu/ops/tsdf_brick.py:215", k8,
-              launches=launches["occupancy_bits"],
-              launches_per_batch=per_batch["occupancy_bits"],
-              launches_per_orbit=per_orbit["occupancy_bits"],
-              launches_per_scan=per_scan["occupancy_bits"],
-              launches_per_bench_fusion=per_fusion["occupancy_bits"],
-              launches_per_bench_grr=per_grr["occupancy_bits"],
+              **fusion_launches("occupancy_bits"),
               **{k: k8[k] for k in ("host_us", "plain_host_us",
                                     "plain_device_ms")}),
         entry("brick_integrate_fixed", "brick_integrate_fixed.cu",

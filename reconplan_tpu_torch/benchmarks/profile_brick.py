@@ -8,9 +8,9 @@ bench scene (``reconplan_tpu_torch.bench``: 32 frames of 640x480, 512^3,
 (a) ``full_pipeline_ms``: ``integrate_frames_bricked_device``.
 (b) ``mask_pipeline_ms``: ``chunk_active_set`` for the 4 chunks, and its
     stages, the functions it calls in order, each timed alone on the
-    previous stage's outputs: ``mask_occ_ms`` (``depth_occupancy``),
+    previous stage's outputs: ``mask_occ_ms`` (``occupancy_bits``),
     ``mask_bits_ms`` (K2 ``active_mask``), ``mask_refine_ms``
-    (``refine_frame_bits``) and ``mask_argsort_ms`` (``compact_active``:
+    (``refine_bits``) and ``mask_argsort_ms`` (``compact_active``:
     the stable-argsort ``compact_ids`` and the frame-bit gather). The TPU
     tool timed jitted prefixes of the pipeline; eager PyTorch times each
     stage on its own, so the stages sum to about the whole.
@@ -71,6 +71,8 @@ from reconplan_tpu_torch.ops.kernels import (
     active_mask,
     brick_ablate,
     brick_integrate,
+    occupancy_bits,
+    refine_bits,
 )
 from reconplan_tpu_torch.ops.kernels.brick_ablate import ARMS
 from reconplan_tpu_torch.utils.device import card_summary
@@ -188,7 +190,7 @@ def run(reps=5, inner=3, log=sys.stderr):
                                     MAX_ACTIVE, nb) for d, T in chunks]
 
     def occ_stage(_=None):
-        return [tb.depth_occupancy(d, DEPTH_SCALE, DEPTH_MAX, cell)
+        return [occupancy_bits(d, DEPTH_SCALE, DEPTH_MAX, cell)
                 for d, _ in chunks]
 
     occ = occ_stage()
@@ -200,8 +202,9 @@ def run(reps=5, inner=3, log=sys.stderr):
     bits = bits_stage()
 
     def refine_stage(_=None):
-        return [tb.refine_frame_bits(b, d, T, intr, origin, bd, VOXEL, trunc,
-                                     MAX_ACTIVE, DEPTH_SCALE, DEPTH_MAX)
+        return [refine_bits(b, d, T, origin, VOXEL, trunc, intr, bd,
+                            min(MAX_ACTIVE, tb.REFINE_CAP), DEPTH_SCALE,
+                            DEPTH_MAX)
                 for b, (d, T) in zip(bits, chunks)]
 
     refined = refine_stage()

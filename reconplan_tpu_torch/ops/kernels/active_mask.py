@@ -13,10 +13,15 @@ import numpy as np
 import torch
 
 from reconplan_tpu_torch.ops.kernels.build import (
+    FLT,
+    INT,
+    PTR,
     check_launch,
     check_tensor,
-    load_library,
+    entry,
+    takes_plain,
 )
+from reconplan_tpu_torch.utils.profiling import count
 
 BRICK_Z, BRICK_Y, BRICK_X = 8, 8, 16  # 8x8x16 voxels = one (8, 128) row
 # the cells ``_occupancy_cell`` picks; the kernel shifts by log2 of the cell
@@ -111,15 +116,14 @@ def _check(occ0, occ1, binp, T_w2c, origin, mip_cell):
 def _launch(brick_dims, origin, voxel_size, trunc, occ0, occ1, binp, T_w2c,
             fx, fy, cx, cy, mip_cell):
     dev = occ0.device
-    if dev.type != "cuda":
-        raise ValueError(f"active_mask: unsupported device {dev}")
     if T_w2c.data_ptr() % 16:
         raise ValueError("T_w2c must be 16-byte aligned (the kernel reads "
                          "each pose row as one float4)")
     bd, bh, bw = brick_dims
     F, Hm, Wm = occ0.shape
     out = torch.empty(bd * bh * bw, dtype=torch.int32, device=dev)
-    err = load_library().active_mask_launch(
+    err = entry("active_mask_launch",
+                (PTR,) * 6 + (INT,) * 7 + (FLT,) * 6 + (PTR,))(
         occ0.data_ptr(), occ1.data_ptr(), T_w2c.data_ptr(),
         origin.data_ptr(), binp.data_ptr(), out.data_ptr(),
         bd * bh * bw, bh, bw, F, Hm, Wm, int(mip_cell),
@@ -133,21 +137,17 @@ def _launch(brick_dims, origin, voxel_size, trunc, occ0, occ1, binp, T_w2c,
 def active_mask(brick_dims, origin, voxel_size, trunc,
                 occ0, occ1, binp, T_w2c, fx, fy, cx, cy, mip_cell=8):
     """(NB,) i32 per-frame active bits (bit f set = brick active in frame
-    f) from the depth-bin occupancy planes of ``_build_depth_occupancy``.
+    f) from the depth-bin occupancy planes of ``occupancy_bits``.
 
-    CUDA tensors launch the K2 kernel (and count the launch in
-    ``active_mask.launches``); CPU tensors take the plain version.
-    ``mip_cell`` must be one of :data:`MIP_CELLS`.
+    CUDA tensors launch the K2 kernel (counted in ``kernel.active_mask``);
+    CPU tensors take the plain version. ``mip_cell`` must be one of
+    :data:`MIP_CELLS`.
     """
     args = (brick_dims, origin, voxel_size, trunc, occ0, occ1, binp, T_w2c,
             fx, fy, cx, cy, mip_cell)
     _check(occ0, occ1, binp, T_w2c, origin, mip_cell)
-    if occ0.device.type == "cpu":
+    if takes_plain("active_mask", occ0.device):
         return active_mask_reference(*args)
     out = _launch(*args)
-    active_mask.launches += 1
+    count("kernel.active_mask")
     return out
-
-
-active_mask.launches = 0
-

@@ -47,11 +47,16 @@ from reconplan_tpu_torch.ops.kernels.brick_integrate import (
     work_slot,
 )
 from reconplan_tpu_torch.ops.kernels.build import (
+    FLT,
+    INT,
+    PTR,
     check_launch,
     check_tensor,
-    load_library,
+    entry,
+    takes_plain,
 )
 from reconplan_tpu_torch.utils.device import scalar_tensor
+from reconplan_tpu_torch.utils.profiling import count
 
 # the order is the CUDA source's ``Arm`` enum
 ARMS = ("full", "no_fbits", "no_gather", "one_row", "rw_only", "smem_window",
@@ -137,10 +142,9 @@ def brick_ablate_reference(arm, sdf_b, weight_b, ids, fbits, n_live, T_w2c,
 def occupancy(arm, device_index):
     """(blocks per SM, threads per block) of ``arm``'s kernel on the card,
     with the dynamic shared memory it is launched with; queried once."""
-    lib = load_library()
     blocks, threads = ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device_index):
-        err = lib.brick_ablate_occupancy(
+        err = entry("brick_ablate_occupancy", (INT, PTR, PTR))(
             ARMS.index(arm), ctypes.byref(blocks), ctypes.byref(threads))
     check_launch("brick_ablate_occupancy", err)
     return blocks.value, threads.value
@@ -164,7 +168,7 @@ def brick_ablate(arm, sdf_b, weight_b, ids, fbits, n_live, T_w2c, intr,
     ``n_live[0]`` of ``ids``, in place. Arguments as
     :func:`~reconplan_tpu_torch.ops.kernels.brick_integrate` without color.
     CUDA tensors launch the kernel (counted per arm in
-    ``brick_ablate.launches``); CPU tensors take the plain version."""
+    ``kernel.brick_ablate.<arm>``); CPU tensors take the plain version."""
     if arm not in ARMS:
         raise ValueError(f"unknown ablation arm {arm!r}; arms are {ARMS}")
     dev = sdf_b.device
@@ -187,19 +191,18 @@ def brick_ablate(arm, sdf_b, weight_b, ids, fbits, n_live, T_w2c, intr,
             max_weight)
     if M == 0:  # nothing to fold, and no launch to count
         return
-    if dev.type == "cpu":
+    if takes_plain("brick_ablate", dev):
         brick_ablate_reference(arm, *args)
         return
-    if dev.type != "cuda":
-        raise ValueError(f"brick_ablate: unsupported device {dev}")
     if not (float(np.float32(depth_scale)) > 0 and float(np.float32(trunc)) > 0):
         raise ValueError("depth_scale and trunc must be > 0 (the kernel "
                          "skips divides whose result that makes exact)")
-    lib = load_library()
     _, bh, bw = brick_dims
     stream = torch.cuda.current_stream(dev)
     f32 = lambda v: float(np.float32(v))  # noqa: E731
-    err = lib.brick_ablate_launch(
+    err = entry("brick_ablate_launch",
+                (INT,) + (PTR,) * 5 + (INT,) * 3 + (PTR,) * 3 + (INT,) * 5
+                + (FLT,) * 9 + (PTR,))(
         ARMS.index(arm), sdf_b.data_ptr(), weight_b.data_ptr(),
         ids.data_ptr(), fbits.data_ptr(), n_live.data_ptr(), M,
         work_slot(dev, stream), grid_size(arm, dev, M),
@@ -209,7 +212,4 @@ def brick_ablate(arm, sdf_b, weight_b, ids, fbits, n_live, T_w2c, intr,
         f32(depth_max), f32(max_weight), stream.cuda_stream,
     )
     check_launch("brick_ablate_launch", err)
-    brick_ablate.launches[arm] += 1
-
-
-brick_ablate.launches = dict.fromkeys(ARMS, 0)
+    count(f"kernel.brick_ablate.{arm}")

@@ -26,11 +26,16 @@ import numpy as np
 import torch
 
 from reconplan_tpu_torch.ops.kernels.build import (
+    FLT,
+    INT,
+    PTR,
     check_launch,
     check_tensor,
-    load_library,
+    entry,
+    takes_plain,
 )
 from reconplan_tpu_torch.utils.device import scalar_tensor
+from reconplan_tpu_torch.utils.profiling import count
 
 BRICK_VOXELS = 1024  # 8 (z) x 8 (y) x 16 (x)
 # work counters of the kernel, one set per device (kWorkSlots in
@@ -152,10 +157,9 @@ def brick_integrate_reference(sdf_b, weight_b, rgb_b, ids, fbits, n_live,
 def occupancy(with_color, device_index):
     """(blocks per SM, threads per block) of the kernel on the card, from
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; queried once."""
-    lib = load_library()
     blocks, threads = ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device_index):
-        err = lib.brick_integrate_occupancy(
+        err = entry("brick_integrate_occupancy", (INT, PTR, PTR))(
             int(with_color), ctypes.byref(blocks), ctypes.byref(threads))
     check_launch("brick_integrate_occupancy", err)
     return blocks.value, threads.value
@@ -217,19 +221,18 @@ def _launch(sdf_b, weight_b, rgb_b, ids, fbits, n_live, T_w2c, intr,
             depths, colors, origin, brick_dims, voxel_size, trunc,
             depth_scale, depth_max, max_weight):
     dev = sdf_b.device
-    if dev.type != "cuda":
-        raise ValueError(f"brick_integrate: unsupported device {dev}")
     if not (float(np.float32(depth_scale)) > 0 and float(np.float32(trunc)) > 0):
         raise ValueError("depth_scale and trunc must be > 0 (the kernel "
                          "skips divides whose result that makes exact)")
-    lib = load_library()
     F, Hd, Wd = depths.shape
     _, bh, bw = brick_dims
     M = ids.shape[0]
     stream = torch.cuda.current_stream(dev)
     f32 = lambda v: float(np.float32(v))  # noqa: E731
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = lib.brick_integrate_launch(
+    err = entry("brick_integrate_launch",
+                (PTR,) * 6 + (INT,) * 3 + (PTR,) * 4 + (INT,) * 5
+                + (FLT,) * 9 + (PTR,))(
         sdf_b.data_ptr(), weight_b.data_ptr(), ptr(rgb_b), ids.data_ptr(),
         fbits.data_ptr(), n_live.data_ptr(), M, work_slot(dev, stream),
         grid_size(rgb_b is not None, dev, M),
@@ -252,7 +255,7 @@ def brick_integrate(sdf_b, weight_b, rgb_b, ids, fbits, n_live, T_w2c,
     floats, ``depths`` (F, Hd, Wd) f32 raw, ``colors`` (F, Hd, Wd) i32
     packed B<<16|G<<8|R or None (then ``rgb_b`` must be None too).
     CUDA tensors launch the K1 kernel (counted in
-    ``brick_integrate.launches``); CPU tensors take the plain version.
+    ``kernel.brick_integrate``); CPU tensors take the plain version.
     """
     args = (sdf_b, weight_b, rgb_b, ids, fbits, n_live, T_w2c, intr, depths,
             colors, origin, brick_dims, voxel_size, trunc, depth_scale,
@@ -261,12 +264,8 @@ def brick_integrate(sdf_b, weight_b, rgb_b, ids, fbits, n_live, T_w2c,
            colors, origin)
     if ids.shape[0] == 0:  # nothing to fold, and no launch to count
         return
-    if sdf_b.device.type == "cpu":
+    if takes_plain("brick_integrate", sdf_b.device):
         brick_integrate_reference(*args)
         return
     _launch(*args)
-    brick_integrate.launches += 1
-
-
-brick_integrate.launches = 0
-
+    count("kernel.brick_integrate")

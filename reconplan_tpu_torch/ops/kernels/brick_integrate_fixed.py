@@ -39,11 +39,16 @@ from reconplan_tpu_torch.ops.kernels.brick_integrate import (
     _voxel_world,
 )
 from reconplan_tpu_torch.ops.kernels.build import (
+    FLT,
+    INT,
+    PTR,
     check_launch,
     check_tensor,
-    load_library,
+    entry,
+    takes_plain,
 )
 from reconplan_tpu_torch.utils.device import scalar_tensor
+from reconplan_tpu_torch.utils.profiling import count
 
 # frames a launch (kMaxFrames in ``csrc/brick_integrate_fixed.cu``)
 MAX_FRAMES = 32
@@ -87,10 +92,9 @@ def brick_integrate_fixed_reference(sdf_b, weight_b, ids, id_base,
 def occupancy(device_index):
     """(blocks per SM, threads per block) of the kernel on the card, from
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; queried once."""
-    lib = load_library()
     blocks, threads = ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device_index):
-        err = lib.brick_integrate_fixed_occupancy(
+        err = entry("brick_integrate_fixed_occupancy", (PTR, PTR))(
             ctypes.byref(blocks), ctypes.byref(threads))
     check_launch("brick_integrate_fixed_occupancy", err)
     return blocks.value, threads.value
@@ -108,14 +112,16 @@ def _launch(sdf_b, weight_b, ids, id_base, n_real_local, T_w2c, intr,
     dev = sdf_b.device
     if dev.type != "cuda":
         raise ValueError(f"brick_integrate_fixed: unsupported device {dev}")
-    lib = load_library()
+    launch = entry("brick_integrate_fixed_launch",
+                   (PTR,) * 3 + (INT,) * 3 + (PTR,) * 3 + (INT,) * 5
+                   + (FLT,) * 9 + (PTR,))
     F, Hd, Wd = depths.shape
     _, bh, bw = brick_dims
     M = ids.shape[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
     starts = range(0, F, MAX_FRAMES)
     for f0 in starts:
-        err = lib.brick_integrate_fixed_launch(
+        err = launch(
             sdf_b.data_ptr(), weight_b.data_ptr(), ids.data_ptr(), M,
             int(id_base), int(n_real_local), T_w2c[f0:].data_ptr(),
             origin.data_ptr(), depths[f0:].data_ptr(),
@@ -139,7 +145,7 @@ def brick_integrate_fixed(sdf_b, weight_b, ids, id_base, n_real_local,
     brick id) and ``n_real_local`` (its real-brick count) are ints.
     ``T_w2c`` (F, 4, 4) f32, ``intr`` (fx, fy, cx, cy) floats, ``depths``
     (F, Hd, Wd) f32 raw. CUDA tensors launch the K3 kernel, once for each
-    ``MAX_FRAMES`` frames (counted in ``brick_integrate_fixed.launches``),
+    ``MAX_FRAMES`` frames (counted in ``kernel.brick_integrate_fixed``),
     which refuses ``depth_scale`` or ``trunc`` <= 0; CPU tensors take the
     plain version.
     """
@@ -159,10 +165,7 @@ def brick_integrate_fixed(sdf_b, weight_b, ids, id_base, n_real_local,
     args = (sdf_b, weight_b, ids, id_base, n_real_local, T_w2c, intr,
             depths, origin, brick_dims, voxel_size, trunc, depth_scale,
             depth_max, max_weight)
-    if dev.type == "cpu":
+    if takes_plain("brick_integrate_fixed", dev):
         brick_integrate_fixed_reference(*args)
         return
-    brick_integrate_fixed.launches += _launch(*args)
-
-
-brick_integrate_fixed.launches = 0
+    count("kernel.brick_integrate_fixed", _launch(*args))

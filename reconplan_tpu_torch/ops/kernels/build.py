@@ -5,7 +5,9 @@ its own ``nvcc`` process, all started together, and the objects link into
 one shared library with a plain C interface,
 ``_build/libreconplan_kernels.so``, at first use. The library is rebuilt
 when the hash of the sources or of the flags changes; it is never built at
-import time. A missing ``nvcc`` or a compile error raises.
+import time. A missing ``nvcc`` or a compile error raises. Each wrapper
+under ``ops/kernels/`` types its own entry point where it calls it
+(:func:`entry`): this module knows no kernel by name.
 
 ``-fmad=false`` keeps every multiply and add separately rounded, so the
 kernels equal their plain PyTorch versions bit for bit.
@@ -35,31 +37,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-# C signatures of the entry points; each returns its cudaGetLastError().
-_SIGNATURES = {
-    "active_mask_launch": (
-        [_P] * 6 + [_I] * 7 + [_F] * 6 + [_P]
-    ),
-    "brick_integrate_launch": (
-        [_P] * 6 + [_I] * 3 + [_P] * 4 + [_I] * 5 + [_F] * 9 + [_P]
-    ),
-    "brick_integrate_occupancy": [_I, _P, _P],
-    "brick_integrate_fixed_launch": (
-        [_P] * 3 + [_I] * 3 + [_P] * 3 + [_I] * 5 + [_F] * 9 + [_P]
-    ),
-    "brick_integrate_fixed_occupancy": [_P, _P],
-    "brick_ablate_launch": (
-        [_I] + [_P] * 5 + [_I] * 3 + [_P] * 3 + [_I] * 5 + [_F] * 9 + [_P]
-    ),
-    "brick_ablate_occupancy": [_I, _P, _P],
-    "gather_probe_launch": [_I] + [_P] * 2 + [_I] * 6 + [_P],
-    "gather_probe_occupancy": [_I, _P, _P],
-    "refine_bits_launch": [_P] * 7 + [_I] * 7 + [_F] * 8 + [_P],
-    "occupancy_bits_launch": [_P] * 5 + [_I] * 5 + [_F] * 2 + [_P],
-}
+# the argument types of the entry points' C signatures (:func:`entry`)
+PTR, INT, FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def find_nvcc() -> str | None:
@@ -236,14 +215,30 @@ def _run_all(cmds) -> list[str]:
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """Build if needed, load once per process, and declare every entry
-    point's argument and return types."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    """Build if needed and load once per process."""
+    return ctypes.CDLL(str(build()))
+
+
+@functools.cache
+def entry(name, argtypes):
+    """The library's entry point ``name``, typed once: ``argtypes``, a
+    tuple of :data:`PTR`, :data:`INT` and :data:`FLT`, and an int result,
+    its ``cudaGetLastError()``."""
+    fn = getattr(load_library(), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def takes_plain(name, device):
+    """True on the CPU, where a wrapper takes its kernel's plain version;
+    False on a CUDA device, where it launches the kernel; raise on any
+    other device."""
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    return False
 
 
 def check_launch(name: str, err: int) -> None:

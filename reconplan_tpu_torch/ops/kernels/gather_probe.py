@@ -22,10 +22,14 @@ import functools
 import torch
 
 from reconplan_tpu_torch.ops.kernels.build import (
+    INT,
+    PTR,
     check_launch,
     check_tensor,
-    load_library,
+    entry,
+    takes_plain,
 )
+from reconplan_tpu_torch.utils.profiling import count
 
 # the order is the CUDA source's ``Arm`` enum; the TPU kinds they answer
 ARMS = ("baseline", "smem_roll", "smem_slice", "rowload")
@@ -64,10 +68,9 @@ def blocks_per_sm(arm, device_index):
     """(the most blocks of ``arm``'s kernel an SM holds, by
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; the blocks an SM
     the probe's grid takes); queried once."""
-    lib = load_library()
     most, taken = ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device_index):
-        err = lib.gather_probe_occupancy(
+        err = entry("gather_probe_occupancy", (INT, PTR, PTR))(
             ARMS.index(arm), ctypes.byref(most), ctypes.byref(taken))
     check_launch("gather_probe_occupancy", err)
     return most.value, taken.value
@@ -83,14 +86,13 @@ def grid_size(arm, device, steps):
 def _launch(arm, x, s0, steps, blocks):
     """Launch ``arm``'s kernel on a grid of ``blocks`` blocks; returns the
     (8, 128) output."""
-    lib = load_library()
     out = torch.empty((8, COLS), dtype=torch.float32, device=x.device)
-    err = lib.gather_probe_launch(
+    err = entry("gather_probe_launch",
+                (INT,) + (PTR,) * 2 + (INT,) * 6 + (PTR,))(
         ARMS.index(arm), x.data_ptr(), out.data_ptr(), H, W, LOOP, int(s0),
         int(steps), int(blocks),
         torch.cuda.current_stream(x.device).cuda_stream)
     check_launch("gather_probe_launch", err)
-    gather_probe.launches[arm] += 1
     return out
 
 
@@ -98,7 +100,7 @@ def gather_probe(arm, x, s0, steps=GRID):
     """Run probe ``arm`` (one of :data:`ARMS`) on ``x`` (H, W) f32 with the
     row shift ``s0`` (an int), ``steps`` times over; returns (8, 128) f32,
     the same for any ``steps``. CUDA tensors launch the kernel (counted
-    per arm in ``gather_probe.launches``); CPU tensors take the plain
+    per arm in ``kernel.gather_probe.<arm>``); CPU tensors take the plain
     version."""
     if arm not in ARMS:
         raise ValueError(f"unknown probe arm {arm!r}; arms are {ARMS}")
@@ -109,14 +111,11 @@ def gather_probe(arm, x, s0, steps=GRID):
         raise ValueError(f"rowload reads rows {s0}..{s0 + LOOP - 1} of {H}")
     if steps < 1:
         raise ValueError(f"steps {steps} must be at least 1")
-    if x.device.type == "cpu":
+    if takes_plain("gather_probe", x.device):
         return gather_probe_reference(arm, x, s0)
-    if x.device.type != "cuda":
-        raise ValueError(f"gather_probe: unsupported device {x.device}")
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned (the window is staged "
                          "with 16-byte copies)")
-    return _launch(arm, x, s0, steps, grid_size(arm, x.device, steps))
-
-
-gather_probe.launches = dict.fromkeys(ARMS, 0)
+    out = _launch(arm, x, s0, steps, grid_size(arm, x.device, steps))
+    count(f"kernel.gather_probe.{arm}")
+    return out

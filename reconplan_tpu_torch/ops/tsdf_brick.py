@@ -6,11 +6,8 @@ exact centre-sample refine -> stable-argsort compaction) and the chunk
 loop of ``integrate_frames_bricked_device``, which hands the compacted
 bricks to K1; and the host-compacted path ``integrate_frames_bricked``
 (centre-sample mask -> numpy compaction -> K3). The kernels live in
-``ops/kernels``: CUDA C++ for CUDA tensors, their plain PyTorch versions
-for CPU tensors. The plain versions of the occupancy mip and the refine,
-:func:`_build_depth_occupancy` and :func:`_exact_frame_bits_dilated`, live
-here; :func:`depth_occupancy` and :func:`refine_frame_bits` launch their
-kernels on CUDA tensors.
+``ops/kernels``, each wrapper with its plain PyTorch version: CUDA C++ for
+CUDA tensors, the plain version for CPU tensors.
 
 Memory layout: the volume lives as bricked arrays ``(NB + 1, 8, 128)``
 (one row per 8x8x16-voxel brick: sublane = local z, lane = local y*16 +
@@ -33,17 +30,21 @@ from reconplan_tpu_torch.ops.kernels.active_mask import (
     BRICK_X,
     BRICK_Y,
     BRICK_Z,
+    MIP_CELLS,
     active_mask,
-    to_int32_bits,
 )
 from reconplan_tpu_torch.ops.kernels.brick_integrate import brick_integrate
 from reconplan_tpu_torch.ops.kernels.brick_integrate_fixed import (
     brick_integrate_fixed,
 )
-from reconplan_tpu_torch.ops.kernels.occupancy_bits import occupancy_bits
+from reconplan_tpu_torch.ops.kernels.occupancy_bits import (
+    MAX_WIDTH,
+    occupancy_bits,
+)
 from reconplan_tpu_torch.ops.kernels.refine_bits import (
-    band as refine_band,
-    check_frames,
+    _brick_centers,
+    _dilate,
+    _project,
     refine_bits,
 )
 from reconplan_tpu_torch.utils.device import resolve_device, scalar_tensor
@@ -53,6 +54,11 @@ from reconplan_tpu_torch.utils.profiling import (
     spanned,
     to_host,
 )
+
+# the most candidate bricks of a chunk the refine tests (the JAX path's
+# cap); the rest keep K2's bits
+REFINE_CAP = 4096
+
 
 class BrickGrid(NamedTuple):
     """Bricked TSDF volume. Logical voxel (z, y, x) lives at brick
@@ -172,35 +178,6 @@ def from_dense(sdf, weight, origin, voxel_size, trunc) -> BrickGrid:
 # ---------------------------------------------------------------------------
 
 
-def _brick_centers(brick_ids, brick_dims, origin, voxel):
-    """World centres (x, y, z) f32 of the given bricks."""
-    _, bh, bw = brick_dims
-    bz = brick_ids // (bh * bw)
-    by = (brick_ids // bw) % bh
-    bx = brick_ids % bw
-    return (
-        origin[0] + (bx.float() * BRICK_X + BRICK_X / 2) * voxel,
-        origin[1] + (by.float() * BRICK_Y + BRICK_Y / 2) * voxel,
-        origin[2] + (bz.float() * BRICK_Z + BRICK_Z / 2) * voxel,
-    )
-
-
-def _project(T, px, py, pz):
-    """Camera coordinates of world points under a (4, 4) w2c pose."""
-    x = T[0, 0] * px + T[0, 1] * py + T[0, 2] * pz + T[0, 3]
-    y = T[1, 0] * px + T[1, 1] * py + T[1, 2] * pz + T[1, 3]
-    z = T[2, 0] * px + T[2, 1] * py + T[2, 2] * pz + T[2, 3]
-    return x, y, z
-
-
-def _dilate(m):
-    """One-brick OR dilation along each axis of a (bd, bh, bw) array, with
-    the JAX path's wrap-around rolls."""
-    for ax in range(3):
-        m = m | torch.roll(m, 1, ax) | torch.roll(m, -1, ax)
-    return m
-
-
 def active_brick_mask(brick_dims, origin, voxel_size, trunc, depths, T_w2c,
                       fx, fy, cx, cy, depth_scale=1000.0, depth_max=3.0):
     """(NB,) bool: bricks whose center lies within trunc + brick radius of
@@ -234,93 +211,6 @@ def active_brick_mask(brick_dims, origin, voxel_size, trunc, depths, T_w2c,
     return active
 
 
-def _build_depth_occupancy(depths, depth_scale=1000.0, depth_max=3.0,
-                           mip_cell=8, mip_rounds=4):
-    """Per-cell depth-occupancy bitmask over 64 adaptive bins spanning the
-    chunk's valid-depth range, as two i32 planes (bins 0-31, 32-63) plus
-    the (b0, bin_size) parameters, OR-dilated ``mip_rounds`` times with
-    wrap-around rolls (see the JAX function for the design)."""
-    F, Hd, Wd = depths.shape
-    Hm, Wm = Hd // mip_cell, Wd // mip_cell
-    d = depths.float() / scalar_tensor(depth_scale, depths.device)
-    valid = (d > 0.0) & (d < depth_max)
-    inf = float("inf")
-    gmin = torch.where(valid, d, inf).amin()
-    gmax = torch.where(valid, d, -inf).amax()
-    gmin = torch.where(torch.isfinite(gmin), gmin, 0.0)
-    gmax = torch.where(torch.isfinite(gmax), gmax, 0.0)
-    bs = torch.clamp((gmax - gmin) / scalar_tensor(62.0, d.device), min=0.002)
-    b0 = gmin - bs  # bin 1 starts at gmin; 0 and 63 stay as margin
-    bins = torch.clamp(((d - b0) / bs).to(torch.int32), 0, 63)
-
-    def cells(a):  # (F, Hd, Wd) -> (F*Hm*Wm, mip_cell**2), one row per cell
-        a = a.reshape(F, Hm, mip_cell, Wm, mip_cell).permute(0, 1, 3, 2, 4)
-        return a.reshape(F * Hm * Wm, mip_cell * mip_cell)
-
-    # bitwise OR over a cell = presence of each bin among its valid pixels
-    present = torch.zeros((F * Hm * Wm, 64), dtype=torch.int32,
-                          device=d.device)
-    present.scatter_reduce_(1, cells(bins).long(), cells(valid).int(), "amax")
-    weights = torch.ones(32, dtype=torch.int64, device=d.device) << torch.arange(
-        32, device=d.device)
-    planes = []
-    for half in (present[:, :32], present[:, 32:]):
-        bits = to_int32_bits((half.long() * weights).sum(dim=1))
-        planes.append(bits.reshape(F, Hm, Wm))
-    occ0, occ1 = planes
-    for _ in range(mip_rounds):  # separable 3x3 OR dilation
-        for ax in (1, 2):
-            occ0 = occ0 | torch.roll(occ0, 1, ax) | torch.roll(occ0, -1, ax)
-            occ1 = occ1 | torch.roll(occ1, 1, ax) | torch.roll(occ1, -1, ax)
-    return occ0, occ1, torch.stack([b0, bs])
-
-
-def _exact_frame_bits_dilated(occ_bits, depths, T_w2c, origin, voxel_size,
-                              trunc, intr, brick_dims, cap, depth_scale,
-                              depth_max):
-    """Per-frame exact centre-sample bits on the occupancy candidates,
-    dilated one brick in each axis direction (wrap-around). Candidates past
-    ``cap`` keep their occupancy bits (see the JAX function)."""
-    bd, bh, bw = brick_dims
-    NB = bd * bh * bw
-    dev = occ_bits.device
-    cap = min(cap, NB)
-    F, Hd, Wd = depths.shape
-    fx, fy, cx, cy = intr
-    occupied = occ_bits != 0
-    # stable-argsort compaction: actives first in index order, padding ->
-    # the NB sentinel
-    n_cand = occupied.sum()
-    cand = torch.argsort(torch.where(occupied, 0, 1).to(torch.int32),
-                         stable=True)[:cap]
-    cand = torch.where(torch.arange(cap, device=dev) < n_cand, cand, NB)
-    ccx, ccy, ccz = _brick_centers(
-        torch.clamp(cand, max=NB - 1), brick_dims, origin,
-        float(np.float32(voxel_size)))
-    # Python-double band, as the JAX function computes it from static floats
-    band = refine_band(voxel_size, trunc)
-    scale = scalar_tensor(depth_scale, depths.device)
-    ebits = torch.zeros(cand.shape, dtype=torch.int32, device=dev)
-    for f in range(F):
-        x, y, z = _project(T_w2c[f], ccx, ccy, ccz)
-        zs = torch.clamp(z, min=1e-6)
-        uf = x / zs * fx + cx
-        vf = y / zs * fy + cy
-        ui = torch.round(uf).to(torch.int32).clamp(0, Wd - 1)
-        vi = torch.round(vf).to(torch.int32).clamp(0, Hd - 1)
-        inside = (z > 1e-4) & (uf >= 0) & (uf < Wd) & (vf >= 0) & (vf < Hd)
-        d = depths[f].reshape(-1)[(vi * Wd + ui).long()] / scale
-        hit = inside & (d > 0) & (d < depth_max) & ((d - z).abs() < band)
-        ebits = ebits | torch.where(hit, 1 << f, 0).to(torch.int32)
-    # rank = position among actives in index order, matching the stable
-    # argsort compaction above, so rank < cap <=> examined
-    rank = torch.cumsum(occupied, 0) - 1
-    base = torch.where(occupied & (rank >= cap), occ_bits, 0)
-    dense = torch.cat([base, torch.zeros(1, dtype=torch.int32, device=dev)])
-    dense = dense.scatter_reduce(0, cand, ebits, "amax")
-    return _dilate(dense[:NB].reshape(bd, bh, bw)).reshape(-1)
-
-
 # ---------------------------------------------------------------------------
 # the chunk loop
 # ---------------------------------------------------------------------------
@@ -328,10 +218,10 @@ def _exact_frame_bits_dilated(occ_bits, depths, T_w2c, origin, voxel_size,
 
 def _occupancy_cell(Hd, Wd):
     """The finest mip cell (tightness vs dilation reach) that divides the
-    frames with at most 128 cells across; None when none does."""
+    frames with at most ``MAX_WIDTH`` cells across; None when none does."""
     return next(
-        (c for c in (8, 16, 32)
-         if Hd % c == 0 and Wd % c == 0 and Wd // c <= 128),
+        (c for c in MIP_CELLS
+         if Hd % c == 0 and Wd % c == 0 and Wd // c <= MAX_WIDTH),
         None,
     )
 
@@ -368,7 +258,7 @@ def chunk_active_set(d_chunk, T_chunk, intr, origin, brick_dims, voxel_size,
     occ_cell = _occupancy_cell(Hd, Wd)
     if occ_cell is not None:
         with span("tsdf.occupancy"):
-            occ0, occ1, binp = depth_occupancy(
+            occ0, occ1, binp = occupancy_bits(
                 d_chunk, depth_scale, depth_max, occ_cell)
         with span("tsdf.k2"):
             # K2: conservative per-frame occupancy superset
@@ -376,9 +266,10 @@ def chunk_active_set(d_chunk, T_chunk, intr, origin, brick_dims, voxel_size,
                 brick_dims, origin, voxel_size, trunc, occ0, occ1, binp,
                 T_chunk, *intr, mip_cell=occ_cell)
         with span("tsdf.refine"):
-            bits = refine_frame_bits(
-                bits, d_chunk, T_chunk, intr, origin, brick_dims, voxel_size,
-                trunc, max_active, depth_scale, depth_max)
+            bits = refine_bits(
+                bits, d_chunk, T_chunk, origin, voxel_size, trunc, intr,
+                brick_dims, min(max_active, REFINE_CAP), depth_scale,
+                depth_max)
         if dilate_active:
             # dilated-in bricks integrate all frames (conservative)
             mask = _dilate((bits != 0).reshape(bd, bh, bw)).reshape(-1)
@@ -392,40 +283,6 @@ def chunk_active_set(d_chunk, T_chunk, intr, origin, brick_dims, voxel_size,
         bits = torch.where(mask, all_frames, 0).to(torch.int32)
     with span("tsdf.compact"):
         return compact_active(bits, max_active, nb_scratch)
-
-
-def depth_occupancy(depths, depth_scale=1000.0, depth_max=3.0, mip_cell=8,
-                    mip_rounds=4):
-    """The occupancy stage of :func:`chunk_active_set`: the two dilated mip
-    planes and the bin parameters of :func:`_build_depth_occupancy`.
-
-    CUDA tensors launch the occupancy kernel (``ops/kernels/occupancy_bits``,
-    counted in ``tsdf.occupancy_fused``); CPU tensors take the plain
-    version, :func:`_build_depth_occupancy`."""
-    args = (depths, depth_scale, depth_max, mip_cell, mip_rounds)
-    if depths.device.type == "cpu":
-        return _build_depth_occupancy(*args)
-    count("tsdf.occupancy_fused")
-    return occupancy_bits(*args)
-
-
-def refine_frame_bits(bits, d_chunk, T_chunk, intr, origin, brick_dims,
-                      voxel_size, trunc, max_active, depth_scale=1000.0,
-                      depth_max=3.0):
-    """The refine stage of :func:`chunk_active_set`: the exact per-frame
-    centre test on K2's candidate ``bits`` (at most min(max_active, 4096)
-    of them) + one brick of dilation, intersected with ``bits``.
-
-    CUDA tensors launch the refine kernel (``ops/kernels/refine_bits``,
-    counted in ``tsdf.refine_fused``); CPU tensors take the plain version,
-    :func:`_exact_frame_bits_dilated`. At most 31 frames."""
-    check_frames(d_chunk.shape[0])
-    args = (bits, d_chunk, T_chunk, origin, voxel_size, trunc, intr,
-            brick_dims, min(max_active, 4096), depth_scale, depth_max)
-    if bits.device.type == "cpu":
-        return bits & _exact_frame_bits_dilated(*args)
-    count("tsdf.refine_fused")
-    return refine_bits(*args)
 
 
 def compact_active(bits, max_active, nb_scratch):

@@ -25,13 +25,16 @@ from reconplan_tpu_torch.ops.kernels import (
     active_mask_reference,
     brick_integrate,
     occupancy_bits,
+    occupancy_bits_reference,
     refine_bits,
+    refine_bits_reference,
 )
 from reconplan_tpu_torch.ops.kernels.occupancy_bits import (
     MAX_ROUNDS,
     MAX_WIDTH,
     PARTIALS,
 )
+from reconplan_tpu_torch.ops.kernels.refine_bits import _brick_centers
 from reconplan_tpu_torch.utils import profiling
 from test_tsdf_marching import make_sphere_depths
 from torch_parity import f32, jax_eager, t
@@ -102,7 +105,7 @@ def test_color_plane_and_numpy_roundtrip_match_jax():
 def test_build_depth_occupancy_bitexact(scene):
     occ_j = jb._build_depth_occupancy(jnp.asarray(scene["depths"]),
                                       1000.0, 3.0, 8)
-    occ_t = tb._build_depth_occupancy(t(scene["depths"]), 1000.0, 3.0, 8)
+    occ_t = occupancy_bits_reference(t(scene["depths"]), 1000.0, 3.0, 8)
     assert_bits_match(occ_t[0], occ_j[0])
     assert_bits_match(occ_t[1], occ_j[1])
     np.testing.assert_array_equal(occ_t[2].numpy(), np.asarray(occ_j[2]))
@@ -110,24 +113,22 @@ def test_build_depth_occupancy_bitexact(scene):
 
 
 def test_depth_occupancy_takes_the_plain_version_on_cpu(scene):
-    """On CPU tensors the occupancy stage is the plain chain, alone and
-    inside ``chunk_active_set``: no kernel call, no
-    ``tsdf.occupancy_fused``; the kernel's wrapper refuses CPU tensors."""
+    """On CPU tensors the occupancy wrapper is the plain chain, alone and
+    inside ``chunk_active_set``: bit for bit, and no ``kernel.*`` counter;
+    a tensor on another device is refused."""
     d = t(scene["depths"])
     bd = _brick_dims(scene["dims"])
     with profiling.recording() as rec:
-        got = tb.depth_occupancy(d, 1000.0, 3.0, 8)
+        got = occupancy_bits(d, 1000.0, 3.0, 8)
         tb.chunk_active_set(d, t(scene["w2c"]), tuple(map(f32, scene["K"])),
                             t(ORIGIN, torch.float32), bd, scene["vox"],
                             scene["trunc"], 8192, bd[0] * bd[1] * bd[2])
-    want = tb._build_depth_occupancy(d, 1000.0, 3.0, 8)
+    want = occupancy_bits_reference(d, 1000.0, 3.0, 8)
     for g, w in zip(got, want):
-        assert torch.equal(g, w)
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
     assert (got[0] != 0).any()
-    with pytest.raises(ValueError, match="device"):
-        occupancy_bits(d, 1000.0, 3.0, 8)
-    assert occupancy_bits.launches == 0
-    assert "tsdf.occupancy_fused" not in rec.counters
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        occupancy_bits(d.to("meta"), 1000.0, 3.0, 8)
     assert rec.counters == {}
 
 
@@ -141,6 +142,76 @@ def test_occupancy_wrapper_sizes_what_the_kernel_expects():
     assert int(consts["kPartials"]) == PARTIALS
     assert int(consts["kMaxWidth"]) == MAX_WIDTH
     assert int(consts["kMaxRounds"]) == MAX_ROUNDS
+
+
+def _meta_calls():
+    """One small call of each kernel wrapper, its tensors on ``meta``."""
+    from reconplan_tpu_torch.ops.kernels import (
+        brick_ablate, brick_integrate_fixed, gather_probe)
+
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    i32 = torch.int32
+    planes = (z(9, 8, 128), z(9, 8, 128))
+    ids, frames = z(4, dtype=i32), (z(2, 4, 4), (1.0, 1.0, 8.0, 8.0),
+                                   z(2, 16, 16))
+    brick = (z(3), (2, 2, 2), 0.01, 0.05, 1000.0, 3.0, 64.0)
+    return {
+        "active_mask": lambda: active_mask(
+            (2, 2, 2), z(3), 0.01, 0.05, z(2, 2, 2, dtype=i32),
+            z(2, 2, 2, dtype=i32), z(2), z(2, 4, 4), 1.0, 1.0, 8.0, 8.0),
+        "brick_integrate": lambda: brick_integrate(
+            *planes, None, ids, ids, z(1, dtype=i32), *frames[:3], None,
+            *brick),
+        "brick_integrate_fixed": lambda: brick_integrate_fixed(
+            *planes, ids, 0, 8, *frames, *brick),
+        "brick_ablate": lambda: brick_ablate(
+            "full", *planes, ids, ids, z(1, dtype=i32), *frames, *brick),
+        "gather_probe": lambda: gather_probe("baseline", z(32, 256), 0),
+        "occupancy_bits": lambda: occupancy_bits(z(2, 16, 16)),
+        "refine_bits": lambda: refine_bits(
+            z(8, dtype=i32), z(2, 16, 16), z(2, 4, 4), z(3), 0.01, 0.05,
+            (1.0, 1.0, 8.0, 8.0), (2, 2, 2), 4096),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_meta_calls()))
+def test_each_kernel_wrapper_refuses_another_device(name):
+    """A wrapper takes the CPU (its plain version) and CUDA (its kernel):
+    past its argument checks, a tensor on any other device raises."""
+    with pytest.raises(ValueError, match=f"{name}: unsupported device meta"):
+        _meta_calls()[name]()
+
+
+def test_kernels_import_nothing_above_them():
+    """``ops/kernels`` imports only itself and ``utils``: ``ops/tsdf_brick``
+    and the layers above call down into it, never the other way."""
+    import ast
+
+    for path in (Path(tb.__file__).parent / "kernels").glob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom):
+                names = [node.module]
+            elif isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            else:
+                continue
+            for name in names:
+                if name.startswith("reconplan_tpu_torch"):
+                    assert name.startswith((
+                        "reconplan_tpu_torch.ops.kernels",
+                        "reconplan_tpu_torch.utils")), (path.name, name)
+
+
+@pytest.mark.parametrize("hw,cell", [
+    ((480, 640), 8), ((120, 160), 8), ((128, 256), 8), ((64, 2048), 16),
+    ((96, 4096), 32), ((64, 8192), None), ((100, 160), None)])
+def test_occupancy_cell_is_the_finest_the_kernels_take(hw, cell):
+    """The mask pipeline's mip cell: the finest of K2's cells that divides
+    the frames with at most the occupancy kernel's ``MAX_WIDTH`` cells
+    across, or none (then the centre-sample mask)."""
+    assert tb._occupancy_cell(*hw) == cell
 
 
 def _mask_inputs(scene):
@@ -163,10 +234,10 @@ def test_k2_plain_matches_pallas_interpret(scene):
     bits_t = active_mask_reference(*args, mip_cell=8)
     assert_bits_match(bits_t, bits_j)
     # the wrapper takes the plain version on CPU tensors, without counting
-    before = active_mask.launches
-    np.testing.assert_array_equal(active_mask(*args, mip_cell=8).numpy(),
-                                  bits_t.numpy())
-    assert active_mask.launches == before
+    with profiling.recording() as rec:
+        np.testing.assert_array_equal(active_mask(*args, mip_cell=8).numpy(),
+                                      bits_t.numpy())
+    assert rec.counters == {}
     assert (np.asarray(bits_j) != 0).any()
 
 
@@ -189,8 +260,8 @@ def test_k2_plain_matches_pallas_interpret_at_cell(mip_cell, n_frames):
     fx, fy, cx, cy = K
     # the brick centres' truncated pixel coordinates: some are <= -1
     ids = torch.arange(bd[0] * bd[1] * bd[2])
-    c = torch.stack(tb._brick_centers(ids, bd, t(ORIGIN, torch.float32),
-                                      float(np.float32(vox))), 1).double()
+    c = torch.stack(_brick_centers(ids, bd, t(ORIGIN, torch.float32),
+                                   float(np.float32(vox))), 1).double()
     cam = c @ torch.from_numpy(w2c[:, :3, :3]).double().transpose(1, 2) \
         + torch.from_numpy(w2c[:, None, :3, 3]).double()
     u = cam[..., 0] / cam[..., 2] * fx + cx
@@ -220,55 +291,57 @@ def test_exact_frame_bits_dilated_bitexact(scene):
             bits, jnp.asarray(scene["depths"]), jnp.asarray(scene["w2c"]),
             origin, scene["vox"], scene["trunc"],
             jnp.asarray(scene["K"], jnp.float32), bd, cap, 1000.0, 3.0)
-        et = tb._exact_frame_bits_dilated(
+        et = refine_bits_reference(
             t(bits), t(scene["depths"]), t(scene["w2c"]),
             t(ORIGIN, torch.float32), scene["vox"], scene["trunc"],
             tuple(map(f32, scene["K"])), bd, cap, 1000.0, 3.0)
-        assert_bits_match(et, ej)
+        # the plain version keeps only K2's bits, as the wrapper does
+        assert_bits_match(et, np.asarray(bits) & np.asarray(ej))
 
 
 def test_refine_frame_bits_takes_the_plain_version_on_cpu(scene):
-    """On CPU tensors the refine stage is the plain chain: no kernel call,
-    no ``tsdf.refine_fused``."""
+    """On CPU tensors the refine wrapper is the plain chain, bit for bit,
+    with no ``kernel.*`` counter; a tensor on another device is refused."""
     bd = _brick_dims(scene["dims"])
     d, w2c = t(scene["depths"]), t(scene["w2c"])
     origin, intr = t(ORIGIN, torch.float32), tuple(map(f32, scene["K"]))
-    occ = tb._build_depth_occupancy(d, 1000.0, 3.0, 8)
+    occ = occupancy_bits_reference(d, 1000.0, 3.0, 8)
     bits = active_mask(bd, origin, scene["vox"], scene["trunc"], *occ, w2c,
                        *intr, mip_cell=8)
+    args = (d, w2c, origin, scene["vox"], scene["trunc"], intr, bd,
+            tb.REFINE_CAP)
     with profiling.recording() as rec:
-        got = tb.refine_frame_bits(bits, d, w2c, intr, origin, bd,
-                                   scene["vox"], scene["trunc"], 32768)
-    want = bits & tb._exact_frame_bits_dilated(
-        bits, d, w2c, origin, scene["vox"], scene["trunc"], intr, bd, 4096,
-        1000.0, 3.0)
+        got = refine_bits(bits, *args)
+    want = refine_bits_reference(bits, *args, 1000.0, 3.0)
     assert torch.equal(got, want) and (got != 0).any()
-    assert refine_bits.launches == 0
-    assert "tsdf.refine_fused" not in rec.counters
     assert rec.counters == {}
+    meta = [a.to("meta") if isinstance(a, torch.Tensor) else a
+            for a in (bits, *args)]
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        refine_bits(*meta)
 
 
 def test_refine_refuses_more_frames_than_its_bit_words_hold():
     """31 frames at most: bit 31 is the i32 word's sign, which the plain
     version's max-scatter drops and the JAX function cannot form. The
-    stage and the kernel's wrapper both refuse 32, as K2's wrapper refuses
-    33, before any work."""
+    wrapper refuses 32 on any device, as K2's wrapper refuses 33, before
+    any work."""
     bd, origin = (2, 2, 2), t(ORIGIN, torch.float32)
     bits = torch.ones(8, dtype=torch.int32)
     d = torch.zeros((32, 16, 32), dtype=torch.float32)
     T = torch.eye(4).expand(32, 4, 4).contiguous()
     intr = (20.0, 20.0, 16.0, 8.0)
-    with pytest.raises(ValueError, match="32 frames"):
-        tb.refine_frame_bits(bits, d, T, intr, origin, bd, 0.01, 0.05, 4096)
-    with pytest.raises(ValueError, match="32 frames"):
-        refine_bits(bits, d, T, origin, 0.01, 0.05, intr, bd, 4096)
-    with pytest.raises(ValueError, match="device"):
-        refine_bits(bits, d[:31], T[:31], origin, 0.01, 0.05, intr, bd, 4096)
-    assert refine_bits.launches == 0
-    # 31 frames take the plain chain
-    out = tb.refine_frame_bits(bits, d[:31], T[:31], intr, origin, bd, 0.01,
-                               0.05, 4096)
+    with profiling.recording() as rec:
+        with pytest.raises(ValueError, match="32 frames"):
+            refine_bits(bits, d, T, origin, 0.01, 0.05, intr, bd, 4096)
+        with pytest.raises(ValueError, match="32 frames"):
+            refine_bits(bits.to("meta"), d.to("meta"), T.to("meta"),
+                        origin.to("meta"), 0.01, 0.05, intr, bd, 4096)
+        # 31 frames take the plain chain
+        out = refine_bits(bits, d[:31], T[:31].contiguous(), origin, 0.01,
+                          0.05, intr, bd, 4096)
     assert out.shape == (8,) and out.dtype == torch.int32
+    assert rec.counters == {}
 
 
 def test_active_brick_mask_bitexact(scene):

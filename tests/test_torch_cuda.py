@@ -31,7 +31,9 @@ from reconplan_tpu_torch.ops.kernels import (
     gather_probe,
     gather_probe_reference,
     occupancy_bits,
+    occupancy_bits_reference,
     refine_bits,
+    refine_bits_reference,
 )
 from reconplan_tpu_torch.ops.kernels.active_mask import MIP_CELLS
 from reconplan_tpu_torch.ops.kernels.brick_ablate import ARMS, footprint
@@ -49,6 +51,10 @@ from reconplan_tpu_torch.ops.kernels.brick_integrate_fixed import (
 )
 from reconplan_tpu_torch.ops.kernels.gather_probe import ARMS as PROBE_ARMS
 from reconplan_tpu_torch.ops.kernels.gather_probe import GRID as PROBE_GRID
+from reconplan_tpu_torch.ops.kernels.refine_bits import (
+    _brick_centers,
+    _project,
+)
 from reconplan_tpu_torch.parallel import (
     gather_brick_grid,
     make_mesh,
@@ -62,6 +68,12 @@ pytestmark = pytest.mark.cuda
 DIMS = (64, 64, 64)
 ORIGIN = (-0.16, -0.16, -0.16)
 VOX = 0.32 / 63
+
+
+def launches(rec, name):
+    """The launches the wrapper ``name`` counted in a recording
+    (``kernel.<name>``)."""
+    return rec.counters.get("kernel." + name, 0)
 
 
 @pytest.fixture(scope="module")
@@ -83,13 +95,13 @@ def chunk(card):
 
 
 def test_k2_bits_identical_to_plain(chunk):
-    occ0, occ1, binp = tb._build_depth_occupancy(chunk["d"], 1000.0, 3.0, 8)
+    occ0, occ1, binp = occupancy_bits_reference(chunk["d"], 1000.0, 3.0, 8)
     args = ((8, 8, 4), chunk["origin"], VOX, 5 * VOX, occ0, occ1, binp,
             chunk["T"], *chunk["intr"])
-    before = active_mask.launches
-    bits = active_mask(*args, mip_cell=8)
+    with profiling.recording() as rec:
+        bits = active_mask(*args, mip_cell=8)
     torch.cuda.synchronize()
-    assert active_mask.launches == before + 1
+    assert rec.counters == {"kernel.active_mask": 1}
     ref = active_mask_reference(*args, mip_cell=8)
     assert torch.equal(bits, ref)
     assert (bits != 0).any()
@@ -119,10 +131,10 @@ def test_k1_matches_plain(chunk, with_color):
     ref = [None if a is None else a.clone() for a in planes]
     rest = (ids, fbits, n, T, chunk["intr"], d, colors, chunk["origin"], bd,
             VOX, 5 * VOX, 1000.0, 3.0, 64.0)
-    before = brick_integrate.launches
-    brick_integrate(*planes, *rest)
+    with profiling.recording() as rec:
+        brick_integrate(*planes, *rest)
     torch.cuda.synchronize()
-    assert brick_integrate.launches == before + 1
+    assert rec.counters == {"kernel.brick_integrate": 1}
     brick_integrate_reference(*ref, *rest)
     assert (planes[0] - ref[0]).abs().max().item() <= 1e-6
     assert torch.equal(planes[1], ref[1])
@@ -136,10 +148,11 @@ def test_device_path_matches_dense_engine_on_card(chunk, card):
     voxels both observed equally often."""
     K = chunk["K"]
     g = tb.make_brick_grid(DIMS, ORIGIN, VOX, device=card)
-    k1, k2 = brick_integrate.launches, active_mask.launches
-    g, n_active = tb.integrate_frames_bricked_device(
-        g, chunk["depths"], chunk["poses"], *K)
-    assert brick_integrate.launches > k1 and active_mask.launches > k2
+    with profiling.recording() as rec:
+        g, n_active = tb.integrate_frames_bricked_device(
+            g, chunk["depths"], chunk["poses"], *K)
+    assert launches(rec, "brick_integrate") > 0
+    assert launches(rec, "active_mask") > 0
     dense = ttsdf.integrate_frames(
         ttsdf.make_grid(DIMS, ORIGIN, VOX, device=card), chunk["depths"],
         chunk["poses"], *K)
@@ -147,6 +160,22 @@ def test_device_path_matches_dense_engine_on_card(chunk, card):
     same = (w_b > 0) & (w_b == dense.weight)
     assert same.sum().item() > 1000 and int(n_active) > 0
     assert (sdf_b - dense.sdf)[same].abs().max().item() <= 1e-6
+
+
+def test_fusion_counts_each_kernel_once_a_chunk(card):
+    """The card's twin of ``test_torch_tracing``'s fuse case: 16 frames
+    (two chunks) through the device path, and each of the chunk's four
+    kernels counted once a chunk."""
+    depths, poses, K = make_frames(16, H=120, W=160, fx=150.0, fy=150.0)
+    g = tb.make_brick_grid(DIMS, ORIGIN, VOX, device=card)
+    with profiling.recording() as rec:
+        tb.integrate_frames_bricked_device(g, depths, poses, *K)
+    kernels = {k: n for k, n in rec.counters.items()
+               if k.startswith("kernel.")}
+    assert rec.counters["tsdf.chunks"] == 2
+    assert kernels == dict.fromkeys(
+        ("kernel.occupancy_bits", "kernel.active_mask", "kernel.refine_bits",
+         "kernel.brick_integrate"), 2)
 
 
 @pytest.mark.parametrize("id_base,n_real", [(0, 256), (128, 128)])
@@ -168,10 +197,10 @@ def test_k3_matches_plain(chunk, card, id_base, n_real):
     ref = [a.clone() for a in planes]
     rest = (ids, id_base, n_real, chunk["T"], chunk["intr"], chunk["d"],
             chunk["origin"], bd, VOX, 5 * VOX, 1000.0, 3.0, 64.0)
-    before = brick_integrate_fixed.launches
-    brick_integrate_fixed(*planes, *rest)
+    with profiling.recording() as rec:
+        brick_integrate_fixed(*planes, *rest)
     torch.cuda.synchronize()
-    assert brick_integrate_fixed.launches == before + 1
+    assert rec.counters == {"kernel.brick_integrate_fixed": 1}
     brick_integrate_fixed_reference(*ref, *rest)
     assert (planes[0] - ref[0]).abs().max().item() <= 1e-6
     assert torch.equal(planes[1], ref[1])
@@ -183,11 +212,11 @@ def test_bricked_and_sharded_paths_launch_k3(chunk, card):
     """The host-compacted path against the dense engine, and four shards on
     the one card bit-identical to it (one chunk, no dilation)."""
     K = chunk["K"]
-    before = brick_integrate_fixed.launches
     g = tb.make_brick_grid(DIMS, ORIGIN, VOX, device=card)
-    g, n_active = tb.integrate_frames_bricked(
-        g, chunk["depths"], chunk["poses"], *K, dilate_active=False)
-    assert brick_integrate_fixed.launches == before + 1 and n_active > 0
+    with profiling.recording() as rec:
+        g, n_active = tb.integrate_frames_bricked(
+            g, chunk["depths"], chunk["poses"], *K, dilate_active=False)
+    assert launches(rec, "brick_integrate_fixed") == 1 and n_active > 0
     dense = ttsdf.integrate_frames(
         ttsdf.make_grid(DIMS, ORIGIN, VOX, device=card), chunk["depths"],
         chunk["poses"], *K)
@@ -197,10 +226,11 @@ def test_bricked_and_sharded_paths_launch_k3(chunk, card):
     assert (sdf_b - dense.sdf)[seen].abs().max().item() <= 1e-6
     g_nbl = make_sharded_brick_grid(DIMS, ORIGIN, VOX,
                                     mesh=make_mesh(devices=[card] * 4))
-    g_nbl, n_sh = sharded_integrate_frames_bricked(
-        g_nbl, chunk["depths"], chunk["poses"], *K,
-        max_active_per_device=64)
-    assert brick_integrate_fixed.launches == before + 5
+    with profiling.recording() as rec:
+        g_nbl, n_sh = sharded_integrate_frames_bricked(
+            g_nbl, chunk["depths"], chunk["poses"], *K,
+            max_active_per_device=64)
+    assert launches(rec, "brick_integrate_fixed") == 4
     assert int(n_sh) == n_active
     gathered = gather_brick_grid(g_nbl)
     assert torch.equal(gathered.sdf, g.sdf)
@@ -234,10 +264,10 @@ def _check_arm(arm, planes, rest):
     bit."""
     out = [a.clone() for a in planes]
     ref = [a.clone() for a in planes]
-    before = brick_ablate.launches[arm]
-    brick_ablate(arm, *out, *rest)
+    with profiling.recording() as rec:
+        brick_ablate(arm, *out, *rest)
     torch.cuda.synchronize()
-    assert brick_ablate.launches[arm] == before + 1
+    assert rec.counters == {f"kernel.brick_ablate.{arm}": 1}
     brick_ablate_reference(arm, *ref, *rest)
     assert (out[0] - ref[0]).abs().max().item() <= 1e-6
     assert torch.equal(out[1], ref[1])
@@ -289,10 +319,10 @@ def test_probe_arm_matches_plain(card, arm, s0):
     step (a grid of one block)."""
     x = torch.rand((32, 256), generator=torch.Generator(device=card)
                    .manual_seed(3), device=card)
-    before = gather_probe.launches[arm]
-    out = gather_probe(arm, x, s0)
+    with profiling.recording() as rec:
+        out = gather_probe(arm, x, s0)
     torch.cuda.synchronize()
-    assert gather_probe.launches[arm] == before + 1
+    assert rec.counters == {f"kernel.gather_probe.{arm}": 1}
     ref = gather_probe_reference(arm, x, s0)
     assert torch.equal(out, ref)
     assert torch.equal(gather_probe(arm, x, s0, steps=2 * PROBE_GRID), ref)
@@ -302,12 +332,12 @@ def test_probe_arm_matches_plain(card, arm, s0):
 def test_probe_wrapper_refuses_a_misaligned_window(card):
     x = torch.rand(32 * 256 + 1, device=card)[1:].view(32, 256)
     assert x.is_contiguous() and x.data_ptr() % 16
-    before = dict(gather_probe.launches)
-    with pytest.raises(ValueError, match="aligned"):
-        gather_probe("smem_roll", x, 0)
-    with pytest.raises(ValueError, match="steps"):
-        gather_probe("baseline", x.clone(), 0, steps=0)
-    assert gather_probe.launches == before
+    with profiling.recording() as rec:
+        with pytest.raises(ValueError, match="aligned"):
+            gather_probe("smem_roll", x, 0)
+        with pytest.raises(ValueError, match="steps"):
+            gather_probe("baseline", x.clone(), 0, steps=0)
+    assert rec.counters == {}
 
 
 # --- the persistent K1 and the per-(brick, frame) K2 at their edges -------
@@ -350,10 +380,10 @@ def _k1_matches_plain(planes, rest, n):
     rest[2] = torch.tensor([n], dtype=torch.int32, device=planes[0].device)
     out = [None if a is None else a.clone() for a in planes]
     ref = [None if a is None else a.clone() for a in planes]
-    before = brick_integrate.launches
-    brick_integrate(*out, *rest)
+    with profiling.recording() as rec:
+        brick_integrate(*out, *rest)
     torch.cuda.synchronize()
-    assert brick_integrate.launches == before + 1
+    assert rec.counters == {"kernel.brick_integrate": 1}
     brick_integrate_reference(*ref, *rest)
     assert (out[0] - ref[0]).abs().max().item() <= 1e-6
     assert torch.equal(out[1], ref[1])
@@ -453,27 +483,26 @@ def test_k2_frame_counts_and_cells(card, n_frames, mip_cell):
     bd = (16, 16, 8)
     origin = torch.tensor(WIDE_ORIGIN, dtype=torch.float32, device=card)
     ids = torch.arange(bd[0] * bd[1] * bd[2], device=card)
-    x, y, z = tb._project(T[0], *tb._brick_centers(ids, bd, origin,
-                                                   WIDE_VOX))
+    x, y, z = _project(T[0], *_brick_centers(ids, bd, origin, WIDE_VOX))
     u, v = x / z * intr[0] + intr[2], y / z * intr[1] + intr[3]
     assert (((u <= -1) | (v <= -1)) & (z > 0)).any()
-    occ0, occ1, binp = tb._build_depth_occupancy(d, 1000.0, 3.0, mip_cell)
+    occ0, occ1, binp = occupancy_bits_reference(d, 1000.0, 3.0, mip_cell)
     args = (bd, origin, WIDE_VOX, 5 * WIDE_VOX, occ0, occ1, binp, T, *intr)
-    before = active_mask.launches
-    bits = active_mask(*args, mip_cell=mip_cell)
+    with profiling.recording() as rec:
+        bits = active_mask(*args, mip_cell=mip_cell)
     torch.cuda.synchronize()
-    assert active_mask.launches == before + 1
+    assert rec.counters == {"kernel.active_mask": 1}
     assert torch.equal(bits, active_mask_reference(*args, mip_cell=mip_cell))
     assert (bits != 0).any()
 
 
 def test_k2_wrapper_refuses_other_cells(chunk):
-    occ0, occ1, binp = tb._build_depth_occupancy(chunk["d"], 1000.0, 3.0, 8)
-    before = active_mask.launches
-    with pytest.raises(ValueError, match="mip_cell"):
-        active_mask((8, 8, 4), chunk["origin"], VOX, 5 * VOX, occ0, occ1,
-                    binp, chunk["T"], *chunk["intr"], mip_cell=4)
-    assert active_mask.launches == before
+    occ0, occ1, binp = occupancy_bits_reference(chunk["d"], 1000.0, 3.0, 8)
+    with profiling.recording() as rec:
+        with pytest.raises(ValueError, match="mip_cell"):
+            active_mask((8, 8, 4), chunk["origin"], VOX, 5 * VOX, occ0, occ1,
+                        binp, chunk["T"], *chunk["intr"], mip_cell=4)
+    assert rec.counters == {}
 
 
 # --- the refine (refine_bits): tests, ranks past the cap, wrap-around -----
@@ -494,7 +523,7 @@ def _refine_inputs(card, n_frames, mip_cell, bd=REFINE_BD, seed=31):
     T = torch.linalg.inv(torch.as_tensor(poses, device=card)).contiguous()
     intr = tuple(float(np.float32(v)) for v in K)
     origin = torch.tensor(WIDE_ORIGIN, dtype=torch.float32, device=card)
-    occ = tb._build_depth_occupancy(d, 1000.0, 3.0, mip_cell)
+    occ = occupancy_bits_reference(d, 1000.0, 3.0, mip_cell)
     bits = active_mask(bd, origin, WIDE_VOX, 5 * WIDE_VOX, *occ, T, *intr,
                        mip_cell=mip_cell)
     g = torch.Generator().manual_seed(seed)
@@ -509,15 +538,15 @@ def _refine_inputs(card, n_frames, mip_cell, bd=REFINE_BD, seed=31):
 
 
 def _refine_plain(bits, d, T, intr, origin, bd, cap, vox=WIDE_VOX):
-    return bits & tb._exact_frame_bits_dilated(
-        bits, d, T, origin, vox, 5 * vox, intr, bd, cap, 1000.0, 3.0)
+    return refine_bits_reference(bits, d, T, origin, vox, 5 * vox, intr,
+                                 bd, cap, 1000.0, 3.0)
 
 
 def _refine(bits, d, T, intr, origin, bd, cap, vox=WIDE_VOX):
-    before = refine_bits.launches
-    out = refine_bits(bits, d, T, origin, vox, 5 * vox, intr, bd, cap)
+    with profiling.recording() as rec:
+        out = refine_bits(bits, d, T, origin, vox, 5 * vox, intr, bd, cap)
     torch.cuda.synchronize()
-    assert refine_bits.launches == before + 1
+    assert rec.counters == {"kernel.refine_bits": 1}
     return out
 
 
@@ -566,9 +595,9 @@ def test_refine_without_a_candidate(card):
 @pytest.mark.parametrize("max_active", [32768, 2048])
 def test_refine_at_the_fuse_cells_shape(card, max_active):
     """512^3, one 8-frame chunk of 640x480 bench frames (3,571
-    candidates), the cap at 4,096 and at 2,048 through
-    ``refine_frame_bits``: the kernel, counted once in ``tsdf.refine_fused``,
-    equals the plain version on the card and on the CPU."""
+    candidates), the cap at 4,096 and at 2,048 as ``chunk_active_set``
+    sets it: the kernel, counted once in ``kernel.refine_bits``, equals the
+    plain version on the card and the wrapper on the CPU."""
     depths, poses, K = make_frames(8)
     d = torch.as_tensor(depths, device=card)
     T = torch.linalg.inv(torch.as_tensor(poses, device=card)).contiguous()
@@ -576,25 +605,21 @@ def test_refine_at_the_fuse_cells_shape(card, max_active):
     grid = tb.make_brick_grid((bench.N,) * 3, bench.ORIGIN, bench.VOXEL,
                               device=card)
     bd = grid.brick_dims
-    occ = tb._build_depth_occupancy(d, 1000.0, 3.0, 8)
+    occ = occupancy_bits_reference(d, 1000.0, 3.0, 8)
     bits = active_mask(bd, grid.origin, bench.VOXEL, grid.trunc, *occ, T,
                        *intr, mip_cell=8)
-    cap = min(max_active, 4096)
+    cap = min(max_active, tb.REFINE_CAP)
     assert int((bits != 0).sum()) > 2048
-    before = refine_bits.launches
     with profiling.recording() as rec:
-        got = tb.refine_frame_bits(bits, d, T, intr, grid.origin, bd,
-                                   bench.VOXEL, grid.trunc, max_active)
+        got = refine_bits(bits, d, T, grid.origin, bench.VOXEL, grid.trunc,
+                          intr, bd, cap)
     torch.cuda.synchronize()
-    assert refine_bits.launches == before + 1
-    assert rec.counters["tsdf.refine_fused"] == 1
-    plain = bits & tb._exact_frame_bits_dilated(
-        bits, d, T, grid.origin, bench.VOXEL, grid.trunc, intr, bd, cap,
-        1000.0, 3.0)
+    assert rec.counters == {"kernel.refine_bits": 1}
+    plain = refine_bits_reference(bits, d, T, grid.origin, bench.VOXEL,
+                                  grid.trunc, intr, bd, cap, 1000.0, 3.0)
     assert torch.equal(got, plain)
-    cpu = tb.refine_frame_bits(bits.cpu(), d.cpu(), T.cpu(), intr,
-                               grid.origin.cpu(), bd, bench.VOXEL,
-                               grid.trunc, max_active)
+    cpu = refine_bits(bits.cpu(), d.cpu(), T.cpu(), grid.origin.cpu(),
+                      bench.VOXEL, grid.trunc, intr, bd, cap)
     assert torch.equal(got.cpu(), cpu)
     assert (got != bits).any() and (got != 0).any()
 
@@ -609,13 +634,13 @@ def test_chunk_active_set_on_the_card_is_its_stages_in_order(chunk,
     with profiling.recording() as rec:
         got = tb.chunk_active_set(d, T, intr, origin, bd, VOX, trunc,
                                   max_active, nb)
-    assert rec.counters["tsdf.refine_fused"] == 1
-    assert rec.counters["tsdf.occupancy_fused"] == 1
-    occ = tb._build_depth_occupancy(d, 1000.0, 3.0, 8)
+    assert rec.counters == {"kernel.occupancy_bits": 1,
+                            "kernel.active_mask": 1, "kernel.refine_bits": 1}
+    occ = occupancy_bits_reference(d, 1000.0, 3.0, 8)
     bits = active_mask(bd, origin, VOX, trunc, *occ, T, *intr, mip_cell=8)
-    bits = bits & tb._exact_frame_bits_dilated(
-        bits, d, T, origin, VOX, trunc, intr, bd, min(max_active, 4096),
-        1000.0, 3.0)
+    bits = refine_bits_reference(
+        bits, d, T, origin, VOX, trunc, intr, bd,
+        min(max_active, tb.REFINE_CAP), 1000.0, 3.0)
     want = tb.compact_active(bits, max_active, nb)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -624,16 +649,16 @@ def test_chunk_active_set_on_the_card_is_its_stages_in_order(chunk,
 
 def test_refine_wrapper_refuses_what_it_cannot_take(card):
     bits, d, T, intr, origin = _refine_inputs(card, 4, 8)
-    before = refine_bits.launches
     d32 = d[:1].expand(32, -1, -1).contiguous()
     T32 = T[:1].expand(32, -1, -1).contiguous()
-    with pytest.raises(ValueError, match="32 frames"):
-        tb.refine_frame_bits(bits, d32, T32, intr, origin, REFINE_BD,
-                             WIDE_VOX, 5 * WIDE_VOX, 4096)
-    with pytest.raises(ValueError, match="T_w2c"):
-        refine_bits(bits, d, T.transpose(1, 2), origin, WIDE_VOX,
-                    5 * WIDE_VOX, intr, REFINE_BD, 4096)
-    assert refine_bits.launches == before
+    with profiling.recording() as rec:
+        with pytest.raises(ValueError, match="32 frames"):
+            refine_bits(bits, d32, T32, origin, WIDE_VOX, 5 * WIDE_VOX, intr,
+                        REFINE_BD, 4096)
+        with pytest.raises(ValueError, match="T_w2c"):
+            refine_bits(bits, d, T.transpose(1, 2), origin, WIDE_VOX,
+                        5 * WIDE_VOX, intr, REFINE_BD, 4096)
+    assert rec.counters == {}
 
 
 # --- the occupancy mip (occupancy_bits): frames, cells, edge depths, wrap --
@@ -643,11 +668,11 @@ def _occupancy_equals_plain(d, mip_cell, mip_rounds=4):
     """The kernel's (occ0, occ1, binp) against the plain version's, bit
     for bit (binp by its f32 words); the kernel counted once. Returns the
     plain planes."""
-    before = occupancy_bits.launches
-    got = occupancy_bits(d, 1000.0, 3.0, mip_cell, mip_rounds)
+    with profiling.recording() as rec:
+        got = occupancy_bits(d, 1000.0, 3.0, mip_cell, mip_rounds)
     torch.cuda.synchronize()
-    assert occupancy_bits.launches == before + 1
-    want = tb._build_depth_occupancy(d, 1000.0, 3.0, mip_cell, mip_rounds)
+    assert rec.counters == {"kernel.occupancy_bits": 1}
+    want = occupancy_bits_reference(d, 1000.0, 3.0, mip_cell, mip_rounds)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
@@ -714,20 +739,20 @@ def test_occupancy_box_wraps_around(card, hw, rounds):
 
 def test_occupancy_wrapper_refuses_what_it_cannot_take(card):
     d = torch.zeros((2, 64, 64), device=card)
-    before = occupancy_bits.launches
-    with pytest.raises(ValueError, match="mip_cell"):
-        occupancy_bits(d, mip_cell=4)
-    with pytest.raises(ValueError, match="mip_cell"):
-        occupancy_bits(torch.zeros((2, 60, 64), device=card), mip_cell=8)
-    with pytest.raises(ValueError, match="cells across"):
-        occupancy_bits(torch.zeros((1, 8, 8 * 129), device=card))
-    with pytest.raises(ValueError, match="rounds"):
-        occupancy_bits(d, mip_rounds=17)
-    with pytest.raises(ValueError, match="depths"):
-        occupancy_bits(d.double())
-    with pytest.raises(ValueError, match="contiguous"):
-        occupancy_bits(d.transpose(1, 2))
-    assert occupancy_bits.launches == before
+    with profiling.recording() as rec:
+        with pytest.raises(ValueError, match="mip_cell"):
+            occupancy_bits(d, mip_cell=4)
+        with pytest.raises(ValueError, match="mip_cell"):
+            occupancy_bits(torch.zeros((2, 60, 64), device=card), mip_cell=8)
+        with pytest.raises(ValueError, match="cells across"):
+            occupancy_bits(torch.zeros((1, 8, 8 * 129), device=card))
+        with pytest.raises(ValueError, match="rounds"):
+            occupancy_bits(d, mip_rounds=17)
+        with pytest.raises(ValueError, match="depths"):
+            occupancy_bits(d.double())
+        with pytest.raises(ValueError, match="contiguous"):
+            occupancy_bits(d.transpose(1, 2))
+    assert rec.counters == {}
 
 
 def test_chunk_active_set_at_the_fuse_cells_shape(card):
@@ -742,19 +767,17 @@ def test_chunk_active_set_at_the_fuse_cells_shape(card):
                               device=card)
     bd, nb, max_active = grid.brick_dims, grid.sdf.shape[0] - 1, 32768
     args = (grid.origin, bd, bench.VOXEL, grid.trunc)
-    before = occupancy_bits.launches
     with profiling.recording() as rec:
         got = tb.chunk_active_set(d, T, intr, *args, max_active, nb)
     torch.cuda.synchronize()
-    assert occupancy_bits.launches == before + 1
-    assert rec.counters == {"tsdf.occupancy_fused": 1,
-                            "tsdf.refine_fused": 1}
+    assert rec.counters == {"kernel.occupancy_bits": 1,
+                            "kernel.active_mask": 1, "kernel.refine_bits": 1}
     occ = _occupancy_equals_plain(d, 8)
     bits = active_mask(bd, grid.origin, bench.VOXEL, grid.trunc, *occ, T,
                        *intr, mip_cell=8)
-    bits = bits & tb._exact_frame_bits_dilated(
-        bits, d, T, grid.origin, bench.VOXEL, grid.trunc, intr, bd, 4096,
-        1000.0, 3.0)
+    bits = refine_bits_reference(bits, d, T, grid.origin, bench.VOXEL,
+                                 grid.trunc, intr, bd, tb.REFINE_CAP, 1000.0,
+                                 3.0)
     want = tb.compact_active(bits, max_active, nb)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -801,13 +824,13 @@ def _k3_reference_planes(planes, rest):
     return ref
 
 
-def _k3_matches_plain(planes, rest, launches=1):
+def _k3_matches_plain(planes, rest, n_launches=1):
     """K3 against its plain version, bit for bit; returns the output."""
     out = [a.clone() for a in planes]
-    before = brick_integrate_fixed.launches
-    brick_integrate_fixed(*out, *rest)
+    with profiling.recording() as rec:
+        brick_integrate_fixed(*out, *rest)
     torch.cuda.synchronize()
-    assert brick_integrate_fixed.launches == before + launches
+    assert rec.counters == {"kernel.brick_integrate_fixed": n_launches}
     ref = _k3_reference_planes(planes, rest)
     assert _same_bits(out[0], ref[0]) and _same_bits(out[1], ref[1])
     return out
@@ -909,18 +932,18 @@ def test_k3_more_frames_than_a_launch_takes(card):
     """F > MAX_FRAMES is split into launches in frame order."""
     F = MAX_FRAMES + 4
     planes, rest = _k3_case(card, 512, _spread(300), n_frames=F)
-    _k3_matches_plain(planes, rest, launches=2)
+    _k3_matches_plain(planes, rest, n_launches=2)
 
 
 def test_k3_wrapper_refuses_nonpositive_scale_and_trunc(card):
     planes, rest = _k3_case(card, 512, _spread(8))
-    before = brick_integrate_fixed.launches
-    for i, bad in ((9, 0.0), (9, -0.05), (10, 0.0), (10, -1000.0)):
-        args = list(rest)
-        args[i] = bad
-        with pytest.raises(ValueError, match="must be > 0"):
-            brick_integrate_fixed(*planes, *args)
-    assert brick_integrate_fixed.launches == before
+    with profiling.recording() as rec:
+        for i, bad in ((9, 0.0), (9, -0.05), (10, 0.0), (10, -1000.0)):
+            args = list(rest)
+            args[i] = bad
+            with pytest.raises(ValueError, match="must be > 0"):
+                brick_integrate_fixed(*planes, *args)
+    assert rec.counters == {}
 
 
 def test_k3_on_two_streams_and_beside_k1(card):
@@ -1055,12 +1078,12 @@ def test_ablate_arm_and_k1_on_two_streams_at_once(card, arm):
 def test_ablate_wrapper_refuses_nonpositive_scale_and_trunc(chunk, card):
     planes, rest = _ablate_case(card, chunk["d"], chunk["T"], chunk["intr"],
                                 chunk["origin"], (8, 8, 4))
-    before = dict(brick_ablate.launches)
-    with pytest.raises(ValueError, match="depth_scale and trunc"):
-        brick_ablate("full", *planes, *rest[:10], 0.0, *rest[11:])
-    with pytest.raises(ValueError, match="unknown ablation arm"):
-        brick_ablate("full2", *planes, *rest)
-    assert brick_ablate.launches == before
+    with profiling.recording() as rec:
+        with pytest.raises(ValueError, match="depth_scale and trunc"):
+            brick_ablate("full", *planes, *rest[:10], 0.0, *rest[11:])
+        with pytest.raises(ValueError, match="unknown ablation arm"):
+            brick_ablate("full2", *planes, *rest)
+    assert rec.counters == {}
 
 
 def test_an_empty_id_list_counts_no_launch(chunk, card):
@@ -1069,11 +1092,11 @@ def test_an_empty_id_list_counts_no_launch(chunk, card):
                                 chunk["origin"], (8, 8, 4))
     none = (rest[0][:0], rest[1][:0], torch.zeros_like(rest[2])) + rest[3:]
     out = [a.clone() for a in planes]
-    before = dict(brick_ablate.launches), brick_integrate.launches
-    brick_ablate("full", *out, *none)
-    brick_integrate(*out, None, *none[:6], None, *none[6:])
+    with profiling.recording() as rec:
+        brick_ablate("full", *out, *none)
+        brick_integrate(*out, None, *none[:6], None, *none[6:])
     torch.cuda.synchronize()
-    assert (brick_ablate.launches, brick_integrate.launches) == before
+    assert rec.counters == {}
     assert all(torch.equal(a, b) for a, b in zip(out, planes))
 
 
@@ -1370,18 +1393,17 @@ def test_graphcore_is_native_on_the_cards_machine(card):
 
 def test_run_scan_without_a_device_lands_on_the_card(card, tmp_path):
     from reconplan_tpu_torch.apps.scan import run_scan
-    from reconplan_tpu_torch.ops.kernels import active_mask, brick_integrate
 
-    before = (active_mask.launches, brick_integrate.launches)
-    out = run_scan(roadmap_dir=ROADMAP, n_waypoints=24, n_images=3,
-                   grid_dim=64, reconstruct="fuse", close_mesh=False,
-                   out_dir=str(tmp_path), verbose=False)
+    with profiling.recording() as rec:
+        out = run_scan(roadmap_dir=ROADMAP, n_waypoints=24, n_images=3,
+                       grid_dim=64, reconstruct="fuse", close_mesh=False,
+                       out_dir=str(tmp_path), verbose=False)
     assert torch.device(out["device"]).type == "cuda"
     assert out["plan"]["waypoints"] == 24
     assert out["plan"]["carried"] + out["plan"]["rescued"] >= 22
     # the card's default engine is the brick engine: K2 and K1 launched
-    assert active_mask.launches > before[0]
-    assert brick_integrate.launches > before[1]
+    assert launches(rec, "active_mask") > 0
+    assert launches(rec, "brick_integrate") > 0
     assert out["fuse_chamfer_mm"] < 10.0
 
 

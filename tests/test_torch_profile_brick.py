@@ -12,7 +12,11 @@ import torch
 
 from reconplan_tpu_torch.benchmarks.profile_brick import compact_topk
 from reconplan_tpu_torch.ops import tsdf_brick as tb
-from reconplan_tpu_torch.ops.kernels import active_mask
+from reconplan_tpu_torch.ops.kernels import (
+    active_mask,
+    occupancy_bits,
+    refine_bits,
+)
 from test_tsdf_marching import make_sphere_depths
 from torch_parity import f32, t
 
@@ -45,11 +49,11 @@ def test_chunk_active_set_is_its_stages_in_order(max_active):
     want = tb.chunk_active_set(d, T, intr, origin, bd, vox, trunc,
                                max_active, nb)
     cell = tb._occupancy_cell(*d.shape[1:])
-    occ = tb._build_depth_occupancy(d, 1000.0, 3.0, cell)
+    occ = occupancy_bits(d, 1000.0, 3.0, cell)
     bits = active_mask(bd, origin, vox, trunc, *occ, T, *intr,
                        mip_cell=cell)
-    bits = tb.refine_frame_bits(bits, d, T, intr, origin, bd, vox, trunc,
-                                max_active)
+    bits = refine_bits(bits, d, T, origin, vox, trunc, intr, bd,
+                       min(max_active, tb.REFINE_CAP))
     got = tb.compact_active(bits, max_active, nb)
     for g, w in zip(got, want):
         assert torch.equal(g, w)

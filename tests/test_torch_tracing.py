@@ -138,6 +138,8 @@ def test_on_names_and_nests_the_stages(rvy, kind):
     if kind == "fuse":
         assert rec.counters["tsdf.chunks"] == 2
         assert sum(n == "tsdf.chunk" for n, _, _ in rec.spans) == 2
+        # the CPU takes the plain versions: no kernel launch is counted
+        assert not any(k.startswith("kernel.") for k in rec.counters)
     else:
         assert rec.counters["ik.calls"] == sum(n == "ik.solve"
                                                for n, _, _ in rec.spans)
@@ -147,6 +149,15 @@ def test_on_names_and_nests_the_stages(rvy, kind):
     # the recording is closed: nothing more goes to it
     profiling.count("tsdf.chunks")
     assert rec.counters.get("tsdf.chunks", 0) == (2 if kind == "fuse" else 0)
+
+
+@pytest.mark.parametrize("kind", sorted(CALLS))
+def test_on_without_a_profiler_opens_no_range(rvy, no_range, kind):
+    """Inside ``recording()`` with no profiler session the spans are kept,
+    and no profiler range, which only a session would see, is opened."""
+    with profiling.recording() as rec:
+        CALLS[kind](rvy)
+    assert parents(rec.spans) >= set(NESTS[kind])
 
 
 @pytest.mark.parametrize("kind", sorted(CALLS))
