@@ -101,7 +101,11 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
               CPU on a seeded sphere (chi within 1e-4 of its peak,
               triangle counts within 1%); estimate_normals and the three
               ICPs on the card against the CPU (the same iterations, T
-              within 1e-5)
+              within 1e-5); the ICP step's kernel (K9, icp_phase) at the
+              stitch cell's shapes against the plain version on the card,
+              for point-to-plane and colored, with the launches of a pack,
+              a step and a result, the bytes a step allocates (0), and a
+              step's device, events and host time beside the plain step's
  16. teleop   the teleop half on the card: (a) the four-arm teleop
               benchmark (grr/teleop_batch.run_reference_benchmark) on
               graph/ur10/rot_variable_yaw with its rgrr/ Random-GRR roadmap,
@@ -222,9 +226,15 @@ entry (`occupancy_bits`, which replaces no TPU kernel either) has host_us,
 plain_host_us and plain_device_ms (the plain chain in a CUDA graph, as
 device_ms); the ablation and probe entries give each arm's numbers under
 "arms", and at the top those of K5's `full`, K4's `smem_window` and the
-probe's `baseline`. The last line is the run's JSON status.
+probe's `baseline`. K9's entry (`icp_step`, which replaces no TPU kernel)
+gives the colored step's numbers at the top and each kind's under
+"kinds", its launches_per_call (a pack, a step, a result: the host's
+launch and copy calls under the profiler) and launches (its steps in
+phase 13's scan, each one an ICP step of the scan's stitch). The last
+line is the run's JSON status.
 """
 
+import importlib
 import json
 import math
 import os
@@ -240,6 +250,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from perfcells.peaks import TSDF_VOXEL_FRAME_OPS, bound_s  # noqa: E402
+from perfcells.trace import LAUNCH_CALLS  # noqa: E402
 from reconplan_tpu_torch.utils import profiling  # noqa: E402
 
 BANANA = os.path.join(REPO, "data/objects/011_banana/tsdf/nontextured.ply")
@@ -432,6 +443,22 @@ def profiled(fn):
     return out, len(ns), sum(ns) / 1e6
 
 
+def launch_calls(fn):
+    """The host's launch and copy calls of one call of ``fn`` under
+    torch.profiler, counted as ``perfcells/trace.py`` counts a window's
+    (its device events can miss the kernels of a ctypes library in a
+    long run of short sessions)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.name().startswith("cu")
+               and any(c in e.name() for c in LAUNCH_CALLS))
+
+
 def bound(nbytes, nops):
     """(bound_ms, bound_by): ``perfcells.peaks.bound_s`` in ms."""
     seconds, by = bound_s(nbytes, nops)
@@ -519,6 +546,142 @@ def occupancy_phase(depths):
           f"host {k8['host_us']:.1f} us a call, plain "
           f"{k8['plain_host_us']:.1f}")
     return k8
+
+
+# f32 operations of one K9 (valid source, valid target) pair, in
+# csrc/icp_step.cu: three differences, three squares, two adds, the compare
+K9_PAIR_OPS = 9
+
+
+def icp_cell_pair(device, seed=3):
+    """(source, target, gradients): the stitch cell's shape for K9, two
+    clouds of 8,192 slots of a 10 cm bumpy sphere with about 1,500 valid
+    slots each, scattered, the target shifted 5 mm, with normals, colors
+    and intensity gradients."""
+    from reconplan_tpu_torch.ops import icp as icp_ops
+    from reconplan_tpu_torch.ops import pointcloud as pc_ops
+
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(8192, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    r = 0.1 + 0.01 * np.sin(5 * d[:, :1]) + 0.008 * np.cos(7 * d[:, 1:2])
+    pts = (d * r).astype(np.float32)
+    cols = np.repeat(0.5 + 0.5 * np.sin(40 * pts[:, :1]), 3, 1).astype(
+        np.float32)
+    src = pc_ops.make_cloud(pts, colors=cols, device=device,
+                            valid=rng.uniform(size=8192) < 1500 / 8192)
+    tgt = pc_ops.estimate_normals(pc_ops.make_cloud(
+        pts + np.float32([0.004, -0.002, 0.003]), colors=cols, device=device,
+        valid=rng.uniform(size=8192) < 1500 / 8192), k=30)
+    return src, tgt, icp_ops.color_gradients(tgt)
+
+
+def icp_phase(dist=0.02):
+    """Phase 15's ICP step (K9) at the stitch cell's shapes
+    (:func:`icp_cell_pair`), for point-to-plane and colored: the kernel's
+    solve against the plain version's on the card (the same iterations, T
+    within 1e-5, fitness within 1e-6), the launches of a pack, a step and a
+    result (the host's launch calls under the profiler: 2 a step and 2 a
+    result) and the bytes a step allocates, and a live
+    step of each timed: device ms (``graph_ms``), events ms, the host's
+    microseconds, and the plain step's events ms, host microseconds and
+    device ms (the profiler's kernel time of one step). The bound is the
+    valid pairs' f32 operations or the bytes a step reads. Prints the
+    phase's line and returns the kernel's numbers (the colored step's at
+    the top, each kind's under "kinds")."""
+    from reconplan_tpu_torch.ops import icp as icp_ops
+    k9 = importlib.import_module(
+        "reconplan_tpu_torch.ops.kernels.icp_step")
+
+    dev = torch.device("cuda")
+    src, tgt, grads = icp_cell_pair(dev)
+    kinds = {}
+    for name, kind, max_it in (("point_to_plane", k9.POINT_TO_PLANE, 30),
+                               ("colored", k9.COLORED, 50)):
+        if kind == k9.COLORED:
+            plain_step = icp_ops._colored_step(src, tgt, grads, dist, 0.968)
+            colored = {"gradients": grads, "lambda_geometric": 0.968}
+        else:
+            plain_step = icp_ops._point_to_plane_step(src, tgt, dist)
+            colored = {}
+
+        def result(T):
+            return icp_ops._final(T, src, tgt, dist)
+
+        def kernel_solve(rel):
+            return k9.icp_solve(kind, src, tgt, torch.eye(4, device=dev),
+                                dist, rel, plain_step, result, **colored)
+
+        def plain(rel):
+            return k9.plain_solve(torch.eye(4, device=dev), rel, plain_step,
+                                  result)
+
+        # the whole solve, kernel and plain, with the stop test
+        got, want = kernel_solve(1e-6), plain(1e-6)
+        icp_ops._solve(k9.icp_step, got, max_it)
+        icp_ops._solve(k9.icp_step_reference, want, max_it)
+        got, want = k9.icp_result(got), k9.icp_result_reference(want)
+        t_err = (got[0] - want[0]).abs().max().item()
+        fit_err = abs(float(got[1]) - float(want[1]))
+        if not (int(got[3]) == int(want[3]) and t_err <= 1e-5
+                and fit_err <= 1e-6):
+            raise AssertionError(
+                f"K9 {name}: {int(got[3])} iterations against the plain "
+                f"version's {int(want[3])}, T err {t_err}, fitness err "
+                f"{fit_err}")
+        # a solve that never stops (rel < 0), so every timed step is live
+        solve, plain_solve = kernel_solve(-1.0), plain(-1.0)
+        ints = solve.buf.view(torch.int32)
+        n_tgt, n_src = int(ints[20]), int(ints[21])
+        launches = {
+            "pack": launch_calls(lambda: kernel_solve(-1.0)),
+            "step": launch_calls(lambda: k9.icp_step(solve)),
+            "result": launch_calls(lambda: k9.icp_result(solve))}
+        if not (launches["step"] == launches["result"] == 2):
+            raise AssertionError(f"K9 {name} launches {launches}")
+
+        def step_bytes(fn):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            return torch.cuda.max_memory_allocated() - base
+
+        run = lambda: k9.icp_step(solve)  # noqa: E731
+        run_plain = lambda: k9.icp_step_reference(plain_solve)  # noqa: E731
+        nums = {"max_abs_err": t_err, "iterations": int(got[3]),
+                "fitness_err": fit_err, "valid_sources": n_src,
+                "valid_targets": n_tgt, "launches_per_call": launches,
+                "step_alloc_bytes": step_bytes(run),
+                "plain_step_alloc_bytes": step_bytes(run_plain),
+                "events_ms": events_ms(run), "device_ms": graph_ms(run),
+                "host_us": host_us(run), "plain_ms": events_ms(run_plain),
+                "plain_device_ms": profiled(run_plain)[2],
+                "plain_host_us": host_us(run_plain, reps=20)}
+        if nums["step_alloc_bytes"] != 0:
+            raise AssertionError(f"K9 {name}: a step allocated "
+                                 f"{nums['step_alloc_bytes']} bytes")
+        gathers = 48 if kind == k9.COLORED else 24
+        nums.update(bound_fields(bound(
+            16 * n_tgt + (16 + gathers) * n_src,
+            K9_PAIR_OPS * n_src * n_tgt), nums["device_ms"]))
+        kinds[name] = nums
+    for name, k in kinds.items():
+        phase("stitch", f"icp_step {name} at 8,192 x 8,192 slots "
+              f"({k['valid_sources']} x {k['valid_targets']} valid): "
+              f"{k['iterations']} iterations as the plain version, T err "
+              f"{k['max_abs_err']:.3g} | launches "
+              f"{json.dumps(k['launches_per_call'])}"
+              f", a step allocates {k['step_alloc_bytes']} bytes (plain "
+              f"{k['plain_step_alloc_bytes']}) | device "
+              f"{k['device_ms'] * 1e3:.2f} us a step (bound "
+              f"{k['bound_ms'] * 1e3:.3f}, {k['bound_by']}), events "
+              f"{k['events_ms'] * 1e3:.2f} us | plain device "
+              f"{k['plain_device_ms']:.4f} ms, events {k['plain_ms']:.4f} "
+              f"ms | host {k['host_us']:.1f} us a step, plain "
+              f"{k['plain_host_us']:.1f}")
+    return {**kinds["colored"], "kinds": kinds}
 
 
 def _fmt(x, spec=".4f"):
@@ -1880,6 +2043,8 @@ def main():
                             close_mesh="auto", close_depth=192, out_dir=out)
         scan_s = time.perf_counter() - t0
         per_scan = launched(rec)
+        scan_icp = (launched(rec, ("icp_step",))["icp_step"],
+                    rec.counters.get("icp.steps", 0))
         files = sorted(os.listdir(out))
         with open(os.path.join(out, "ctraj.txt")) as f:
             entries = re.findall(r"^[^,\n]+,(None|\[[^\]]*\])", f.read(),
@@ -1929,6 +2094,11 @@ def main():
         if count == 0:
             raise AssertionError(f"the scan's fusion never launched {name}")
         launches[name] += count
+    # every ICP step of the scan's stitch went through K9
+    if not scan_icp[0] == scan_icp[1] > 0:
+        raise AssertionError(f"the scan's stitch launched K9 {scan_icp[0]} "
+                             f"times for {scan_icp[1]} ICP steps")
+    launches["icp_step"] = scan_icp[0]
     stages = scan["stage_timings"]
     # the reconstruct half: the stitched cloud on the object, the closed
     # and stitched Chamfers beside the JAX package's, and the gate
@@ -2223,6 +2393,8 @@ def main():
           f"estimate_normals min n . n' {nrm_dot:.8f} | "
           + "; ".join(icp_lines) + " (the card against the CPU)")
     del small, shots, grid_c, grid_h
+    # the ICP step's kernel (K9) at the stitch cell's shapes
+    k9 = icp_phase()
 
     # --- 16. the teleop half -----------------------------------------
     teleop_phase(card)
@@ -2312,6 +2484,14 @@ def main():
               **fusion_launches("occupancy_bits"),
               **{k: k8[k] for k in ("host_us", "plain_host_us",
                                     "plain_device_ms")}),
+        entry("icp_step", "icp_step.cu",
+              "no TPU kernel: the XLA ICP solves, "
+              "reconplan_tpu/ops/icp.py", k9,
+              launches=launches["icp_step"],
+              launches_per_scan=launches["icp_step"],
+              **{k: k9[k] for k in ("host_us", "plain_host_us",
+                                    "plain_device_ms", "launches_per_call",
+                                    "kinds")}),
         entry("brick_integrate_fixed", "brick_integrate_fixed.cu",
               "reconplan_tpu/ops/tsdf_brick.py:503", k3,
               launches=launches["brick_integrate_fixed"],

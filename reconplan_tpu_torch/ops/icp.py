@@ -8,15 +8,21 @@ Zhou, Koltun ICCV 2017).
 
 Correspondences are dense nearest neighbours (no KD-tree) and every
 iteration is fixed-shape (threshold masking, never compaction). Each JAX
-solve is one ``lax.while_loop``; here it is a Python loop that keeps a
-``live`` flag on the device: the transform, the rmse and the iteration
-count change only while the JAX stop test holds, so the loop takes
-exactly the JAX number of iterations, and the host asks the flag only
-every ``CHECK_EVERY`` iterations (each question is a synchronisation,
-counted as one ``host.reads``). Each step the host issues counts one
-``icp.steps``, frozen ones past convergence included, and each
-point-to-plane and colored solve is one span (``icp.point_to_plane``,
-``icp.colored``).
+solve is one ``lax.while_loop``; here it is a Python loop over a solve
+(``ops/kernels/icp_step.IcpSolve``) that keeps a ``live`` flag on the
+device: the transform, the rmse and the iteration count change only
+while the JAX stop test holds, so the loop takes exactly the JAX number
+of iterations, and the host asks the flag only every ``CHECK_EVERY``
+iterations (each question is a synchronisation, counted as one
+``host.reads``). Each step the host issues counts one ``icp.steps``,
+frozen ones past convergence included, and each point-to-plane and
+colored solve is one span (``icp.point_to_plane``, ``icp.colored``).
+On the card a point-to-plane or colored step is the kernel pair K9
+(``ops/kernels/icp_step``); on the CPU, and for point-to-point
+everywhere, it is the plain step below. K9's neighbour search is exact
+(by subtraction) where the plain step's matmul form can pick either of
+two nearly equidistant targets, so on the card a solve can settle in
+fewer steps under the same stop test.
 
 The 6x6 normal equations and the batched 3x3 gradient fits go to
 ``torch.linalg.solve_ex``, which neither raises on a singular system nor
@@ -26,11 +32,22 @@ never ``torch.matmul`` (no TF32).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from reconplan_tpu_torch.core import maths
+from reconplan_tpu_torch.ops.kernels.icp_step import (
+    COLORED,
+    POINT_TO_PLANE,
+    icp_result,
+    icp_result_reference,
+    icp_solve,
+    icp_step,
+    icp_step_reference,
+    plain_solve,
+)
 from reconplan_tpu_torch.ops.nn import knn, nearest_neighbor
 from reconplan_tpu_torch.ops.pointcloud import PointCloud, batched_eigh
 from reconplan_tpu_torch.utils.profiling import count, spanned, to_host
@@ -118,31 +135,18 @@ def _correspondences(T, src_pts, src_valid, dst_pts, dst_valid, max_dist):
     return moved, idx, d, w
 
 
-def _solve(step, T0, max_iteration, relative_rmse):
-    """The JAX ``lax.while_loop`` of every ICP here: ``step(T)`` returns
-    (T', rmse at T); the loop runs while fewer than ``max_iteration``
-    steps were taken and the rmse still moves by more than
-    ``relative_rmse`` of itself. Returns (T, iterations) tensors."""
-    dev = T0.device
-    T = T0
-    # finite sentinel: with inf the relative test becomes inf > inf
-    # (False) and the loop would never start
-    rmse = torch.tensor(1e30, device=dev)
-    prev = torch.tensor(0.0, device=dev)
-    iters = torch.zeros((), dtype=torch.int32, device=dev)
-    live = torch.ones((), dtype=torch.bool, device=dev)
+def _solve(step, solve, max_iteration):
+    """The JAX ``lax.while_loop`` of every ICP here: ``step(solve)`` takes
+    one step of ``solve``, which moves its T only while fewer than
+    ``max_iteration`` steps were taken and the rmse still moves by more
+    than its ``relative_rmse`` of itself (``live``); the host looks at
+    ``live`` every ``CHECK_EVERY`` steps and stops at the first look
+    that finds it off."""
     for it in range(max_iteration):
-        live = live & ((prev - rmse).abs()
-                       > relative_rmse * torch.clamp(rmse, min=1e-12))
-        if it and it % CHECK_EVERY == 0 and not bool(to_host(live)):
+        if it and it % CHECK_EVERY == 0 and not bool(to_host(solve.live)):
             break
         count("icp.steps")
-        T_new, rmse_new = step(T)
-        T = torch.where(live, T_new, T)
-        prev = torch.where(live, rmse, prev)
-        rmse = torch.where(live, rmse_new, rmse)
-        iters = iters + live.to(torch.int32)
-    return T, iters
+        step(solve)
 
 
 def _init(init, device):
@@ -151,15 +155,14 @@ def _init(init, device):
     return torch.as_tensor(init, dtype=torch.float32, device=device)
 
 
-def _final(T, source, target, max_dist, iters):
-    """ICPResult at the converged T: inliers over valid source points, and
-    the point-to-point rmse of the inliers."""
+def _final(T, source, target, max_dist):
+    """(fitness, inlier rmse) at the converged T: inliers over valid source
+    points, and the point-to-point rmse of the inliers."""
     _, _, d, w = _correspondences(T, source.points, source.valid,
                                   target.points, target.valid, max_dist)
     n_src = torch.clamp(source.valid.to(torch.float32).sum(), min=1.0)
     n_in = torch.clamp(w.sum(), min=1.0)
-    return ICPResult(T, w.sum() / n_src, torch.sqrt((w * d * d).sum() / n_in),
-                     iters)
+    return w.sum() / n_src, torch.sqrt((w * d * d).sum() / n_in)
 
 
 def icp_point_to_point(
@@ -182,8 +185,10 @@ def icp_point_to_point(
         n_in = torch.clamp(w.sum(), min=1.0)
         return T_new, torch.sqrt((w * d * d).sum() / n_in)
 
-    T, iters = _solve(step, T0, max_iteration, relative_rmse)
-    return _final(T, source, target, max_correspondence_distance, iters)
+    solve = plain_solve(T0, relative_rmse, step, lambda T: _final(
+        T, source, target, max_correspondence_distance))
+    _solve(icp_step_reference, solve, max_iteration)
+    return ICPResult(*icp_result_reference(solve))
 
 
 def _gauss_newton_step(A_rows, residuals, weights, damping=1e-6):
@@ -204,6 +209,39 @@ def _cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def _point_to_plane_step(source, target, max_dist):
+    """The plain step of :func:`icp_point_to_plane`: T -> (T', rmse at
+    T)."""
+
+    def step(T):
+        moved, idx, _, w = _correspondences(
+            T, source.points, source.valid, target.points, target.valid,
+            max_dist)
+        q = target.points[idx]
+        n = target.normals[idx]
+        r = (n * (moved - q)).sum(dim=-1)
+        # d r / d xi rows: [ (p' x n), n ]
+        A = torch.cat([_cross(moved, n), n], dim=-1)
+        xi = _gauss_newton_step(A, r, w)
+        T_new = _matmul4(_se3_exp(xi), T)
+        n_in = torch.clamp(w.sum(), min=1.0)
+        return T_new, torch.sqrt((w * r * r).sum() / n_in)
+
+    return step
+
+
+def _run(kind, step, source, target, max_dist, init, max_iteration,
+         relative_rmse, **colored):
+    """A point-to-plane or colored solve through ``ops/kernels/icp_step``:
+    its plain ``step`` on the CPU, the kernel pair on the card."""
+    T0 = _init(init, source.points.device)
+    solve = icp_solve(kind, source, target, T0, max_dist, relative_rmse,
+                      step, lambda T: _final(T, source, target, max_dist),
+                      **colored)
+    _solve(icp_step, solve, max_iteration)
+    return ICPResult(*icp_result(solve))
+
+
 @spanned("icp.point_to_plane")
 def icp_point_to_plane(
     source: PointCloud,
@@ -215,24 +253,9 @@ def icp_point_to_plane(
 ):
     """Point-to-plane ICP: minimizes sum w (n_q . (T p - q))^2 by
     Gauss-Newton on the se3 twist."""
-    T0 = _init(init, source.points.device)
-
-    def step(T):
-        moved, idx, _, w = _correspondences(
-            T, source.points, source.valid, target.points, target.valid,
-            max_correspondence_distance)
-        q = target.points[idx]
-        n = target.normals[idx]
-        r = (n * (moved - q)).sum(dim=-1)
-        # d r / d xi rows: [ (p' x n), n ]
-        A = torch.cat([_cross(moved, n), n], dim=-1)
-        xi = _gauss_newton_step(A, r, w)
-        T_new = _matmul4(_se3_exp(xi), T)
-        n_in = torch.clamp(w.sum(), min=1.0)
-        return T_new, torch.sqrt((w * r * r).sum() / n_in)
-
-    T, iters = _solve(step, T0, max_iteration, relative_rmse)
-    return _final(T, source, target, max_correspondence_distance, iters)
+    return _run(POINT_TO_PLANE, _point_to_plane_step(
+        source, target, max_correspondence_distance), source, target,
+        max_correspondence_distance, init, max_iteration, relative_rmse)
 
 
 def _intensity(colors):
@@ -266,35 +289,24 @@ def color_gradients(cloud: PointCloud, k_gradient: int = 10):
     return torch.linalg.solve_ex(AtA, Atb[..., None])[0][..., 0]  # (N, 3)
 
 
-@spanned("icp.colored")
-def colored_icp(
-    source: PointCloud,
-    target: PointCloud,  # must carry normals, colors, and gradients
-    target_gradients: torch.Tensor,
-    max_correspondence_distance: float,
-    init: torch.Tensor | None = None,
-    max_iteration: int = 50,
-    lambda_geometric: float = 0.968,
-    relative_rmse: float = 1e-6,
-):
-    """Colored point cloud registration (Park, Zhou, Koltun ICCV 2017) —
-    the algorithm behind Open3D's ``registration_colored_icp`` of the
-    reference's ``stitcher.py:94-103``. Joint objective:
-        (1 - l) * (c_p - c_q - d_q . (proj(p') - q))^2 + l * (n_q.(p'-q))^2
-    with Open3D's default lambda_geometric = 0.968.
-    """
-    T0 = _init(init, source.points.device)
-    lg = torch.tensor(lambda_geometric, dtype=torch.float32,
-                      device=T0.device)
-    sqrt_lg = torch.sqrt(lg)
-    sqrt_lc = torch.sqrt(1.0 - lg)
-    c_src = _intensity(source.colors)
-    c_tgt = _intensity(target.colors)
+def _colored_step(source, target, target_gradients, max_dist,
+                  lambda_geometric):
+    """The plain step of :func:`colored_icp`: T -> (T', rmse at T). Its
+    constants are made at its first step, so a solve that never takes it
+    (the card's) makes none."""
+
+    @functools.cache
+    def constants():
+        lg = torch.tensor(lambda_geometric, dtype=torch.float32,
+                          device=source.points.device)
+        return (lg, torch.sqrt(lg), torch.sqrt(1.0 - lg),
+                _intensity(source.colors), _intensity(target.colors))
 
     def step(T):
+        lg, sqrt_lg, sqrt_lc, c_src, c_tgt = constants()
         moved, idx, _, w = _correspondences(
             T, source.points, source.valid, target.points, target.valid,
-            max_correspondence_distance)
+            max_dist)
         q = target.points[idx]
         n = target.normals[idx]
         grad = target_gradients[idx]
@@ -322,5 +334,28 @@ def colored_icp(
                            + (w * r_c ** 2).sum() * (1 - lg)) / n_in)
         return T_new, rmse
 
-    T, iters = _solve(step, T0, max_iteration, relative_rmse)
-    return _final(T, source, target, max_correspondence_distance, iters)
+    return step
+
+
+@spanned("icp.colored")
+def colored_icp(
+    source: PointCloud,
+    target: PointCloud,  # must carry normals, colors, and gradients
+    target_gradients: torch.Tensor,
+    max_correspondence_distance: float,
+    init: torch.Tensor | None = None,
+    max_iteration: int = 50,
+    lambda_geometric: float = 0.968,
+    relative_rmse: float = 1e-6,
+):
+    """Colored point cloud registration (Park, Zhou, Koltun ICCV 2017) —
+    the algorithm behind Open3D's ``registration_colored_icp`` of the
+    reference's ``stitcher.py:94-103``. Joint objective:
+        (1 - l) * (c_p - c_q - d_q . (proj(p') - q))^2 + l * (n_q.(p'-q))^2
+    with Open3D's default lambda_geometric = 0.968.
+    """
+    return _run(COLORED, _colored_step(
+        source, target, target_gradients, max_correspondence_distance,
+        lambda_geometric), source, target, max_correspondence_distance,
+        init, max_iteration, relative_rmse, gradients=target_gradients,
+        lambda_geometric=lambda_geometric)

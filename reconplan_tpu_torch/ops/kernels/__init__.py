@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels of the brick TSDF path, each behind one
-wrapper module with its plain PyTorch version.
+"""Hand-written CUDA kernels of the brick TSDF path and the ICP step,
+each behind one wrapper module with its plain PyTorch version.
 
 =====  ================================  ======================================
  K     wrapper, counter                  replaces
@@ -18,11 +18,16 @@ wrapper module with its plain PyTorch version.
        ``kernel.refine_bits``            ``tsdf_brick.py:431``
  K8    ``occupancy_bits``                no kernel: XLA ops,
        ``kernel.occupancy_bits``         ``tsdf_brick.py:215``
+ K9    ``icp_step``                      no kernel: XLA ops, ``icp.py``
+       ``kernel.icp_step``               ``icp_point_to_plane``,
+                                         ``colored_icp``
 =====  ================================  ======================================
 
 K1-K3 replace TPU kernels of ``reconplan_tpu/ops``, K4-K6 those of the
 repo's ``benchmarks/`` folder. K7 and K8 replace eager chains of the mask
-pipeline, the refine and the occupancy mip.
+pipeline, the refine and the occupancy mip; K9 the eager Gauss-Newton
+step of the point-to-plane and colored ICP solves, whose plain step
+``ops/icp`` hands to the wrapper (it searches with ``ops/nn``).
 
 Each wrapper ``<name>`` is the kernel's one seam: it checks its
 arguments, takes ``<name>_reference``, the plain version beside it, for
@@ -55,6 +60,10 @@ from reconplan_tpu_torch.ops.kernels.gather_probe import (
     gather_probe,
     gather_probe_reference,
 )
+from reconplan_tpu_torch.ops.kernels.icp_step import (
+    icp_step,
+    icp_step_reference,
+)
 from reconplan_tpu_torch.ops.kernels.occupancy_bits import (
     occupancy_bits,
     occupancy_bits_reference,
@@ -75,6 +84,8 @@ __all__ = [
     "brick_integrate_reference",
     "gather_probe",
     "gather_probe_reference",
+    "icp_step",
+    "icp_step_reference",
     "occupancy_bits",
     "occupancy_bits_reference",
     "refine_bits",

@@ -11,6 +11,7 @@ plain versions in ``test_torch_cuda.py`` (on the card).
 
 import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,11 +25,13 @@ from reconplan_tpu_torch.ops.kernels import (
     active_mask,
     active_mask_reference,
     brick_integrate,
+    icp_step,
     occupancy_bits,
     occupancy_bits_reference,
     refine_bits,
     refine_bits_reference,
 )
+from reconplan_tpu_torch.ops.kernels.icp_step import POINT_TO_PLANE, icp_solve
 from reconplan_tpu_torch.ops.kernels.occupancy_bits import (
     MAX_ROUNDS,
     MAX_WIDTH,
@@ -157,7 +160,11 @@ def _meta_calls():
     ids, frames = z(4, dtype=i32), (z(2, 4, 4), (1.0, 1.0, 8.0, 8.0),
                                    z(2, 16, 16))
     brick = (z(3), (2, 2, 2), 0.01, 0.05, 1000.0, 3.0, 64.0)
+    cloud = SimpleNamespace(points=z(8, 3), valid=z(8, dtype=torch.bool),
+                            normals=z(8, 3))
     return {
+        "icp_step": lambda: icp_step(icp_solve(
+            POINT_TO_PLANE, cloud, cloud, z(4, 4), 0.02, 1e-6, None, None)),
         "active_mask": lambda: active_mask(
             (2, 2, 2), z(3), 0.01, 0.05, z(2, 2, 2, dtype=i32),
             z(2, 2, 2, dtype=i32), z(2), z(2, 4, 4), 1.0, 1.0, 8.0, 8.0),

@@ -8,6 +8,7 @@ nor the JAX package, so it also runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import importlib
 import os
 import re
 
@@ -1480,6 +1481,115 @@ def test_icps_on_the_card_equal_the_cpu(card):
         assert int(a.iterations) == int(b.iterations)
         assert (a.transformation.cpu() - b.transformation).abs().max() <= 1e-5
         assert abs(float(a.fitness) - float(b.fitness)) <= 1e-6
+
+
+def _icp_pair(kind, case, device):
+    """(source, target, gradients or None) for a K9 test: ``bumpy``, 1,500
+    points of the bumpy sphere shifted 2 cm; ``cell``, the stitch cell's
+    shape, 8,192 slots a cloud of a 10 cm bumpy sphere, about 1,500 valid
+    in each at scattered slots and a 5 mm shift; ``zero_inliers``,
+    ``cell`` with the target 10 m away; ``no_valid_source``, ``cell``
+    with no valid source slot."""
+    from reconplan_tpu_torch.ops import icp, pointcloud as pc
+
+    rng = np.random.default_rng(3)
+    if case == "bumpy":
+        pts, _ = _bumpy(1500)
+        shift, src_valid, tgt_valid = [0.02, -0.01, 0.015], None, None
+    else:
+        pts, _ = _bumpy(8192, seed=1, r0=0.1)
+        shift = [0.004, -0.002, 0.003]
+        src_valid = rng.uniform(size=8192) < 1500 / 8192
+        tgt_valid = rng.uniform(size=8192) < 1500 / 8192
+        if case == "zero_inliers":
+            shift = [10.0, 0.0, 0.0]
+        if case == "no_valid_source":
+            src_valid[:] = False
+    cols = np.repeat(0.5 + 0.5 * np.sin(7 * pts[:, :1] / pts.std()), 3,
+                     1).astype(np.float32)
+    src = pc.make_cloud(pts, colors=cols, valid=src_valid, device=device)
+    tgt = pc.estimate_normals(pc.make_cloud(
+        pts + np.float32(shift), colors=cols, valid=tgt_valid,
+        device=device), k=12)
+    grads = icp.color_gradients(tgt) if kind == "colored" else None
+    return src, tgt, grads
+
+
+def _icp_solve(kind, src, tgt, grads, dist):
+    """The public solve of ``kind`` at its defaults."""
+    from reconplan_tpu_torch.ops import icp
+
+    if kind == "colored":
+        return icp.colored_icp(src, tgt, grads, dist)
+    return icp.icp_point_to_plane(src, tgt, dist)
+
+
+@pytest.mark.parametrize("case", ["bumpy", "cell", "zero_inliers",
+                                  "no_valid_source"])
+@pytest.mark.parametrize("kind", ["point_to_plane", "colored"])
+def test_icp_step_kernel_equals_its_plain_version(card, monkeypatch, kind,
+                                                  case):
+    """K9 against the plain version on the card (the eager chain, which
+    ``takes_plain`` picks when patched): the same iterations, T within
+    1e-5, fitness within 1e-6; each step the host issued launched the
+    kernel pair once (``kernel.icp_step`` = ``icp.steps``)."""
+    k9 = importlib.import_module(
+        "reconplan_tpu_torch.ops.kernels.icp_step")
+
+    dist = 0.1 if case == "bumpy" else 0.02
+    src, tgt, grads = _icp_pair(kind, case, card)
+    with profiling.recording() as rec:
+        got = _icp_solve(kind, src, tgt, grads, dist)
+    assert rec.counters["kernel.icp_step"] == rec.counters["icp.steps"] > 0
+    with monkeypatch.context() as m:
+        m.setattr(k9, "takes_plain", lambda name, dev: True)
+        with profiling.recording() as rec_plain:
+            want = _icp_solve(kind, src, tgt, grads, dist)
+    assert "kernel.icp_step" not in rec_plain.counters
+    assert got.transformation.is_cuda and want.transformation.is_cuda
+    assert int(got.iterations) == int(want.iterations)
+    assert (got.transformation - want.transformation).abs().max() <= 1e-5
+    assert abs(float(got.fitness) - float(want.fitness)) <= 1e-6
+    assert abs(float(got.inlier_rmse) - float(want.inlier_rmse)) <= 1e-6
+    if case in ("zero_inliers", "no_valid_source"):
+        assert int(got.iterations) == 2 and float(got.fitness) == 0.0
+        assert torch.equal(got.transformation.cpu(), torch.eye(4))
+
+
+@pytest.mark.parametrize("kind", ["point_to_plane", "colored"])
+def test_icp_step_kernel_repeats_its_bits(card, kind):
+    """No float atomics: two solves of the cell's shape give the same
+    bits."""
+    src, tgt, grads = _icp_pair(kind, "cell", card)
+    a, b = (_icp_solve(kind, src, tgt, grads, 0.02) for _ in range(2))
+    for x, y in zip(a, b):
+        assert x.cpu().numpy().tobytes() == y.cpu().numpy().tobytes()
+
+
+@pytest.mark.parametrize("kind", ["point_to_plane", "colored"])
+def test_frozen_icp_step_changes_nothing(card, kind):
+    """A step with ``live`` off writes nothing: the solve's whole buffer
+    keeps its bits, and the step still counts as launched."""
+    k9 = importlib.import_module(
+        "reconplan_tpu_torch.ops.kernels.icp_step")
+
+    src, tgt, grads = _icp_pair(kind, "cell", card)
+    kw = ({"gradients": grads, "lambda_geometric": 0.968}
+          if kind == "colored" else {})
+    solve = k9.icp_solve(
+        k9.COLORED if kind == "colored" else k9.POINT_TO_PLANE, src, tgt,
+        torch.eye(4, device=card), 0.02, 1e-6, None, None, **kw)
+    k9.icp_step(solve)
+    assert int(solve.iters) == 1 and int(solve.live) == 1
+    solve.live.zero_()
+    before = solve.buf.clone()
+    with profiling.recording() as rec:
+        for _ in range(3):
+            k9.icp_step(solve)
+    torch.cuda.synchronize()
+    assert rec.counters["kernel.icp_step"] == 3
+    assert torch.equal(solve.buf.view(torch.int32),
+                       before.view(torch.int32))
 
 
 def test_ransac_scores_on_the_card_equal_the_cpu(card):

@@ -28,6 +28,8 @@ Tolerances and why:
   by value.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -446,3 +448,190 @@ class TestFeatures:
                                     1))
         assert rot_err < 0.05
         assert np.linalg.norm(T[:3, 3] - t) < 0.02
+
+
+# ``ops/icp``'s point-to-plane and colored solves as they stood before
+# their steps went behind ``ops/kernels/icp_step`` (the plain loop, step
+# bodies and result, word for word): the solves on CPU tensors must keep
+# these bits
+def _before_solve(step, T0, max_iteration, relative_rmse):
+    T = T0
+    rmse = torch.tensor(1e30)
+    prev = torch.tensor(0.0)
+    iters = torch.zeros((), dtype=torch.int32)
+    live = torch.ones((), dtype=torch.bool)
+    for it in range(max_iteration):
+        live = live & ((prev - rmse).abs()
+                       > relative_rmse * torch.clamp(rmse, min=1e-12))
+        if it and it % ticp.CHECK_EVERY == 0 and not bool(live):
+            break
+        T_new, rmse_new = step(T)
+        T = torch.where(live, T_new, T)
+        prev = torch.where(live, rmse, prev)
+        rmse = torch.where(live, rmse_new, rmse)
+        iters = iters + live.to(torch.int32)
+    return T, iters
+
+
+def _before_final(T, source, target, max_dist, iters):
+    _, _, d, w = ticp._correspondences(T, source.points, source.valid,
+                                       target.points, target.valid, max_dist)
+    n_src = torch.clamp(source.valid.to(torch.float32).sum(), min=1.0)
+    n_in = torch.clamp(w.sum(), min=1.0)
+    return ticp.ICPResult(T, w.sum() / n_src,
+                          torch.sqrt((w * d * d).sum() / n_in), iters)
+
+
+def _before_point_to_plane(source, target, dist, init, max_iteration=30,
+                           relative_rmse=1e-6):
+    def step(T):
+        moved, idx, _, w = ticp._correspondences(
+            T, source.points, source.valid, target.points, target.valid,
+            dist)
+        q = target.points[idx]
+        n = target.normals[idx]
+        r = (n * (moved - q)).sum(dim=-1)
+        A = torch.cat([ticp._cross(moved, n), n], dim=-1)
+        xi = ticp._gauss_newton_step(A, r, w)
+        T_new = ticp._matmul4(ticp._se3_exp(xi), T)
+        n_in = torch.clamp(w.sum(), min=1.0)
+        return T_new, torch.sqrt((w * r * r).sum() / n_in)
+
+    T, iters = _before_solve(step, ticp._init(init, "cpu"), max_iteration,
+                             relative_rmse)
+    return _before_final(T, source, target, dist, iters)
+
+
+def _before_colored(source, target, target_gradients, dist, init,
+                    max_iteration=50, lambda_geometric=0.968,
+                    relative_rmse=1e-6):
+    T0 = ticp._init(init, "cpu")
+    lg = torch.tensor(lambda_geometric, dtype=torch.float32)
+    sqrt_lg = torch.sqrt(lg)
+    sqrt_lc = torch.sqrt(1.0 - lg)
+    c_src = ticp._intensity(source.colors)
+    c_tgt = ticp._intensity(target.colors)
+
+    def step(T):
+        moved, idx, _, w = ticp._correspondences(
+            T, source.points, source.valid, target.points, target.valid,
+            dist)
+        q = target.points[idx]
+        n = target.normals[idx]
+        grad = target_gradients[idx]
+        cq = c_tgt[idx]
+        r_g = (n * (moved - q)).sum(dim=-1)
+        A_g = torch.cat([ticp._cross(moved, n), n], dim=-1) * sqrt_lg
+        dpq = moved - q
+        proj = moved - (dpq * n).sum(dim=-1, keepdim=True) * n
+        c_proj = cq + (grad * (proj - q)).sum(dim=-1)
+        r_c = c_src - c_proj
+        M = grad - (grad * n).sum(dim=-1, keepdim=True) * n
+        A_c = torch.cat([ticp._cross(moved, -M), -M], dim=-1) * sqrt_lc
+        A = torch.cat([A_g, A_c], dim=0)
+        r = torch.cat([r_g * sqrt_lg, r_c * sqrt_lc], dim=0)
+        xi = ticp._gauss_newton_step(A, r, torch.cat([w, w], dim=0))
+        T_new = ticp._matmul4(ticp._se3_exp(xi), T)
+        n_in = torch.clamp(w.sum(), min=1.0)
+        rmse = torch.sqrt(((w * r_g ** 2).sum() * lg
+                           + (w * r_c ** 2).sum() * (1 - lg)) / n_in)
+        return T_new, rmse
+
+    T, iters = _before_solve(step, T0, max_iteration, relative_rmse)
+    return _before_final(T, source, target, dist, iters)
+
+
+@pytest.fixture(scope="module")
+def colored_pair():
+    """A bumpy sphere with a color pattern and its moved copy, the target
+    with normals and intensity gradients."""
+    rng = np.random.default_rng(5)
+    pts = surface_points(rng, 1500)
+    dst = moved(pts, random_transform(rng, 0.06, 0.02))
+    cols = np.repeat(0.5 + 0.5 * np.sin(7 * pts[:, :1]), 3, 1).astype(
+        np.float32)
+    valid = rng.uniform(size=len(pts)) > 0.3
+    return pts, dst, cols, valid
+
+
+@pytest.mark.parametrize("case", ["overlap", "scattered", "zero_inliers",
+                                  "no_valid_source", "iteration_cap"])
+@pytest.mark.parametrize("kind", ["point_to_plane", "colored"])
+def test_plain_solves_keep_their_bits(colored_pair, kind, case):
+    """On CPU tensors the solves through ``ops/kernels/icp_step``'s plain
+    version equal, bit for bit, the loop they ran before: T, fitness,
+    inlier rmse and iterations, including a solve with no inlier, one
+    with no valid source point and one stopped by its iteration cap."""
+    pts, dst, cols, valid = colored_pair
+    src_valid = {"scattered": valid,
+                 "no_valid_source": np.zeros_like(valid)}.get(case)
+    src = tpc.make_cloud(pts, colors=cols, valid=src_valid, device="cpu")
+    tgt = tpc.estimate_normals(tpc.make_cloud(
+        dst + (10.0 if case == "zero_inliers" else 0.0), colors=cols,
+        valid=valid if case == "scattered" else None, device="cpu"), k=12)
+    init = np.eye(4, dtype=np.float32)
+    init[:3, 3] = [0.01, -0.005, 0.0]
+    kw = {"max_iteration": 3} if case == "iteration_cap" else {}
+    if kind == "point_to_plane":
+        got = ticp.icp_point_to_plane(src, tgt, 0.1, init=init, **kw)
+        want = _before_point_to_plane(src, tgt, 0.1, init, **kw)
+    else:
+        grads = ticp.color_gradients(tgt)
+        got = ticp.colored_icp(src, tgt, grads, 0.1, init=init, **kw)
+        want = _before_colored(src, tgt, grads, 0.1, init, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w), (g, w)
+    assert int(got.iterations) == {"zero_inliers": 2, "no_valid_source": 2,
+                                   "iteration_cap": 3}.get(
+        case, int(got.iterations))
+
+
+def test_icp_step_wrapper_reads_the_kernels_layout():
+    """The wrapper's kinds, buffer sizes and state words are the kernel's
+    own constants (``csrc/icp_step.cu``)."""
+    import re
+    from pathlib import Path
+
+    k9 = importlib.import_module(
+        "reconplan_tpu_torch.ops.kernels.icp_step")
+
+    src = (Path(k9.__file__).parents[2] / "csrc" / "icp_step.cu").read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert (consts["kPointToPlane"], consts["kColored"],
+            consts["kResult"]) == (k9.POINT_TO_PLANE, k9.COLORED,
+                                   k9._RESULT)
+    assert consts["kSourcesPerBlock"] == k9.SOURCES_PER_BLOCK
+    assert consts["kStateWords"] == k9.STATE_WORDS
+    assert consts["kPartialWords"] == k9.PARTIAL_WORDS
+    assert (consts["kT"], consts["kRmse"], consts["kPrev"], consts["kIters"],
+            consts["kLive"], consts["kFitness"], consts["kInlierRmse"]) == (
+        0, k9._RMSE, k9._PREV, k9._ITERS, k9._LIVE, k9._FITNESS,
+        k9._INLIER_RMSE)
+
+
+def test_icp_solves_on_the_cpu_launch_nothing(colored_pair):
+    """CPU tensors take the plain version: the steps are counted in
+    ``icp.steps`` and none in ``kernel.icp_step``; the wrapper refuses an
+    unknown kind and an empty cloud."""
+    k9 = importlib.import_module(
+        "reconplan_tpu_torch.ops.kernels.icp_step")
+    from reconplan_tpu_torch.utils import profiling
+
+    pts, dst, cols, _ = colored_pair
+    src = tpc.make_cloud(pts, colors=cols, device="cpu")
+    tgt = tpc.estimate_normals(tpc.make_cloud(dst, colors=cols,
+                                              device="cpu"), k=12)
+    with profiling.recording() as rec:
+        res = ticp.colored_icp(src, tgt, ticp.color_gradients(tgt), 0.1,
+                               max_iteration=6)
+    assert rec.counters["icp.steps"] == int(res.iterations) == 6
+    assert not any(k.startswith("kernel.") for k in rec.counters)
+    with pytest.raises(ValueError, match="unknown kind 2"):
+        k9.icp_solve(k9._RESULT, src, tgt, torch.eye(4), 0.1, 1e-6, None,
+                     None)
+    empty = tpc.make_cloud(np.zeros((0, 3), np.float32), device="cpu")
+    with pytest.raises(ValueError, match="needs a source and a target"):
+        k9.icp_solve(k9.POINT_TO_PLANE, empty, tgt, torch.eye(4), 0.1, 1e-6,
+                     None, None)
